@@ -3,19 +3,19 @@
 Builds a known GP quasar-emission model, draws three spectra from it
 (one clean, one with an injected DLA, one with TWO), runs the Bayesian
 model selection, and prints the posteriors and recovered absorber
-parameters.  Runs on CPU or a TPU chip as-is (~1 min on CPU).
+parameters.  Runs on the CPU or a GPU as-is.
 
     python examples/quickstart.py
 """
 
 import numpy as np
 
-from gp_dla_detection_tpu.inference import PaddedSpectra
-from gp_dla_detection_tpu.models.qso_model import GPModel
-from gp_dla_detection_tpu.multi_dla import process_spectra_multi
-from gp_dla_detection_tpu.ops.voigt import voigt_absorption
-from gp_dla_detection_tpu.params import NullModelParams, Parameters
-from gp_dla_detection_tpu.samples import generate_dla_samples
+from gp_dla_detection.inference import PaddedSpectra
+from gp_dla_detection.models.qso_model import GPModel
+from gp_dla_detection.multi_dla import process_spectra_multi
+from gp_dla_detection.ops.voigt import voigt_absorption
+from gp_dla_detection.params import NullModelParams, Parameters
+from gp_dla_detection.samples import generate_dla_samples
 
 rng = np.random.default_rng(0)
 params = Parameters(null_model=NullModelParams(k=6))

@@ -1,12 +1,12 @@
 // gpdla_io: multithreaded bulk loader for SDSS speclite coadd FITS files.
 //
-// Native runtime component of gp_dla_detection_tpu (the reference's only
-// native code is its Voigt MEX kernel, voigt.c — here the TPU replaces
-// that with a Pallas kernel, and the native layer instead accelerates
+// Native runtime component of gp_dla_detection (the reference's only
+// native code is its Voigt MEX kernel, voigt.c — here XLA replaces
+// that on the accelerator, and the native layer instead accelerates
 // the host-side data plane: preload_qsos.m's sequential loop over
 // ~162k FITS files, read_spec.m:6-39 semantics per file).
 //
-// Exposed C ABI (ctypes, see gp_dla_detection_tpu/io/native.py):
+// Exposed C ABI (ctypes, see gp_dla_detection/io/native.py):
 //
 //   int gpdla_read_spec_batch(
 //       const char** paths, int n_files, int max_pixels, int n_threads,

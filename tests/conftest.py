@@ -1,7 +1,8 @@
 """Test configuration: CPU backend, 8 virtual devices, float64 enabled.
 
-Multi-chip sharding tests run on a virtual 8-device CPU mesh (the
-standard JAX stand-in for a TPU slice); numerical parity tests need
+Multi-device sharding tests run on a virtual 8-device CPU mesh (the
+standard JAX stand-in for a multi-device machine); numerical parity
+tests need
 float64.  Must run before jax initializes, hence the env vars here.
 """
 
@@ -25,8 +26,8 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.io.fits import write_bintable
-from gp_dla_detection_tpu.params import Parameters
+from gp_dla_detection.io.fits import write_bintable
+from gp_dla_detection.params import Parameters
 
 
 def write_spec_file(path, loglam, flux, ivar, and_mask):
@@ -144,3 +145,25 @@ def synthetic_release(tmp_path):
             and_mask,
         )
     return params
+
+
+@pytest.fixture
+def gpu_env():
+    """Environment for a child process on the GPU; skips the test where
+    JAX finds none.  This process is pinned to the CPU above, so the
+    check runs in a child, without the CPU pin."""
+    import subprocess
+    import sys
+
+    env = {
+        k: v for k, v in os.environ.items()
+        if k not in ("JAX_PLATFORMS", "XLA_FLAGS")
+    }
+    probe = subprocess.run(
+        [sys.executable, "-c", "import jax; print(jax.devices()[0].platform)"],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    platform = probe.stdout.strip().splitlines()[-1:] or ["none"]
+    if platform[0] != "gpu":
+        pytest.skip(f"needs an NVIDIA GPU; JAX found {platform[0]}")
+    return env

@@ -38,7 +38,7 @@ def main() -> None:
 
     import numpy as np
 
-    from gp_dla_detection_tpu.parallel import (
+    from gp_dla_detection.parallel import (
         ShardedRunConfig,
         initialize_distributed,
         make_mesh,
@@ -57,7 +57,7 @@ def main() -> None:
     ckpt = out_dir / "ckpt"
 
     if mode == "lean_multi":
-        from gp_dla_detection_tpu.parallel.sharded_multi import (
+        from gp_dla_detection.parallel.sharded_multi import (
             process_spectra_multi_sharded,
         )
 

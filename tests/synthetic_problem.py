@@ -5,9 +5,9 @@ build bit-identical inputs from the same seed."""
 
 import numpy as np
 
-from gp_dla_detection_tpu.inference import PaddedSpectra
-from gp_dla_detection_tpu.models.qso_model import GPModel
-from gp_dla_detection_tpu.params import NullModelParams, Parameters
+from gp_dla_detection.inference import PaddedSpectra
+from gp_dla_detection.models.qso_model import GPModel
+from gp_dla_detection.params import NullModelParams, Parameters
 
 
 def make_problem():

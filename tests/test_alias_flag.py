@@ -3,14 +3,14 @@ signature from the survey forensics, as a catalog flag."""
 
 import numpy as np
 
-from gp_dla_detection_tpu.alias_flag import (
+from gp_dla_detection.alias_flag import (
     C_KMS,
     lyb_alias_suspect,
     map_pair_params,
 )
-from gp_dla_detection_tpu.inference import InferenceResults
-from gp_dla_detection_tpu.multi_dla import MultiDLAResults
-from gp_dla_detection_tpu.ops.lyman_series import TRANSITION_WAVELENGTHS
+from gp_dla_detection.inference import InferenceResults
+from gp_dla_detection.multi_dla import MultiDLAResults
+from gp_dla_detection.ops.lyman_series import TRANSITION_WAVELENGTHS
 
 LYB_RATIO = TRANSITION_WAVELENGTHS[1] / TRANSITION_WAVELENGTHS[0]
 
@@ -123,7 +123,7 @@ def test_classic_matrix_path_matches_lean():
 
 
 def test_ascii_multi_results(tmp_path):
-    from gp_dla_detection_tpu.ascii_catalog import write_ascii_multi_results
+    from gp_dla_detection.ascii_catalog import write_ascii_multi_results
 
     offsets, lnhis = _tables()
     multi = _multi([0, 0], [1, 2], 2)

@@ -9,13 +9,13 @@ import pytest
 from scipy.integrate import quad
 from scipy.stats import poisson
 
-from gp_dla_detection_tpu.analysis.cddf import DLACatalogue
-from gp_dla_detection_tpu.analysis.cosmology import (
+from gp_dla_detection.analysis.cddf import DLACatalogue
+from gp_dla_detection.analysis.cosmology import (
     AbsorptionPath,
     path_length_integrand,
     rho_crit,
 )
-from gp_dla_detection_tpu.analysis.pb import (
+from gp_dla_detection.analysis.pb import (
     combine_with_poisson,
     interval,
     pdf_confidence,
@@ -54,7 +54,7 @@ def test_poisson_binomial_accepts_list_of_arrays():
 def test_poisson_binomial_storage_noise_clamped():
     """f32 sample-matrix round trips can hand the DFT a "probability"
     of 1 + O(1e-6) (a posterior concentrated on one sample; seen at
-    survey scale, validation/l7_survey_parity.py).  The input must be
+    survey scale).  The input must be
     clamped into [0, 1] — the naive path emits a negative pdf mass the
     output clip would turn into a normalization error — while a
     genuinely out-of-range value still fails loudly."""
@@ -396,9 +396,9 @@ def test_noisy_pixel_excision():
 
 
 def test_compute_pixel_noise(synthetic_release):
-    from gp_dla_detection_tpu.analysis import compute_pixel_noise
-    from gp_dla_detection_tpu.catalog import build_catalog
-    from gp_dla_detection_tpu.spectra import preload_qsos
+    from gp_dla_detection.analysis import compute_pixel_noise
+    from gp_dla_detection.catalog import build_catalog
+    from gp_dla_detection.spectra import preload_qsos
 
     params = synthetic_release
     cat = build_catalog(params)

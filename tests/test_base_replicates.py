@@ -1,29 +1,26 @@
-"""Base-replicated pair sampling (base_replicates=2).
+"""Base-replicated pair sampling (explicit base_replicates=R > 1).
 
 The fused lean two-stage driver can share each posterior base draw
-between a kernel tile's two half-lanes (multi_dla.replicate_draw_
-pattern): the pair kernel then computes the base-axis Voigt math once
-per unique draw (ops/evidence_pallas, base_replicates) — bit-identical
-output on pattern-satisfying inputs, ~half the base-axis transcendental
-cost.  These tests pin the pattern layout, the coarse-grid inverse-CDF
-draw, the kernel bit-identity (including the padded partial tail), and
-the driver wiring.
+between R pair columns of every REPLICATE_TILE-column block
+(multi_dla.replicate_draw_pattern), drawing on an R-coarser quantile
+grid.  These tests pin the pattern layout, the coarse-grid inverse-CDF
+draw, the driver wiring, and resume of an R > 1 run from its
+checkpoints.
 """
 
-import dataclasses
 import warnings
 
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.multi_dla import (
+from gp_dla_detection.multi_dla import (
     _posterior_cdf,
     base_sample_perm,
     device_inverse_cdf_grid,
     replicate_draw_pattern,
 )
-from gp_dla_detection_tpu.parallel import ShardedRunConfig, make_mesh
-from gp_dla_detection_tpu.parallel.sharded_multi import (
+from gp_dla_detection.parallel import ShardedRunConfig, make_mesh
+from gp_dla_detection.parallel.sharded_multi import (
     process_spectra_multi_sharded,
 )
 
@@ -131,89 +128,15 @@ def test_coarse_grid_draw_randomized_sweep():
                 )
 
 
-def _kernel_problem(S, seed=0):
-    from gp_dla_detection_tpu.params import InstrumentParams
-
-    rng = np.random.default_rng(seed)
-    B, P, k = 3, 200, 4
-    inst = InstrumentParams()
-    P6 = P + 2 * inst.width
-    lam = np.exp(np.linspace(np.log(3800), np.log(4400), P6))
-    args = dict(
-        ext_wavelengths=np.tile(lam, (B, 1)).astype(np.float32),
-        flux=rng.normal(1, 0.3, (B, P)).astype(np.float32),
-        mu=np.ones((B, P), np.float32),
-        M=(rng.normal(size=(B, P, k)) * 0.1).astype(np.float32),
-        omega2=(0.04 * np.ones((B, P))).astype(np.float32),
-        noise_variance=(0.01 + 0.02 * rng.random((B, P))).astype(np.float32),
-        mask=rng.random((B, P)) > 0.05,
-        z_dlas=np.sort(rng.uniform(2.2, 2.6, (B, S)), axis=1).astype(
-            np.float32
-        ),
-        nhi=(10 ** rng.uniform(20, 22, (B, S))).astype(np.float32),
-    )
-    return args, inst, rng
-
-
-@pytest.mark.parametrize("R", [2, 4, 8])  # R>=4 exercises the pixel fold
-@pytest.mark.parametrize("S", [256, 300])  # exact tiles and a padded tail
-def test_kernel_base_replicates_bit_identical(S, R):
-    """On pattern-satisfying inputs the replicated kernel must be
-    BIT-identical to R=1: it evaluates the same elementwise math on the
-    unique lanes (folding pixel blocks into spare lanes at R>=4) and
-    broadcasts.  A violated pattern must diverge (proving the fast path
-    is actually taken, not silently disabled)."""
-    from gp_dla_detection_tpu.ops.evidence_pallas import (
-        SAMPLE_TILE,
-        pallas_sample_log_likelihoods,
-    )
-
-    args, inst, rng = _kernel_problem(S)
-    di, nd = replicate_draw_pattern(S, SAMPLE_TILE, R)
-    z2 = rng.uniform(2.2, 2.6, (3, nd)).astype(np.float32)[:, di]
-    n2 = (10 ** rng.uniform(20, 22, (3, nd))).astype(np.float32)[:, di]
-    kw = dict(
-        num_lines=3, instrument=inst, interpret=True, z_dlas2=z2, nhi2=n2
-    )
-    base = np.asarray(pallas_sample_log_likelihoods(**args, **kw))
-    fast = np.asarray(
-        pallas_sample_log_likelihoods(**args, base_replicates=R, **kw)
-    )
-    assert np.isfinite(base).all()
-    np.testing.assert_array_equal(fast, base)
-
-    # violated pattern: lane 130's draw differs from its twin (lane 2)
-    z2v = z2.copy()
-    z2v[:, 130] += 0.05
-    kwv = dict(
-        num_lines=3, instrument=inst, interpret=True, z_dlas2=z2v, nhi2=n2
-    )
-    honest = np.asarray(pallas_sample_log_likelihoods(**args, **kwv))
-    shortcut = np.asarray(
-        pallas_sample_log_likelihoods(**args, base_replicates=R, **kwv)
-    )
-    assert not np.array_equal(honest, shortcut)
-
-    with pytest.raises(ValueError, match="base_replicates"):
-        pallas_sample_log_likelihoods(**args, base_replicates=3, **kw)
-    with pytest.raises(ValueError, match="two-DLA"):
-        pallas_sample_log_likelihoods(
-            **args, base_replicates=2, num_lines=3, instrument=inst,
-            interpret=True,
-        )
-
-
 def _run_lean(problem, prior_num, tmp=None, n_samples=None, **overrides):
     params, model, spectra, offsets, nhis, prior_z, _ = problem
     if n_samples is not None:
-        # a sample axis wider than the kernel tile, so R=2 genuinely
-        # coarsens the draw grid (with S < tile/2 the pattern is the
+        # a sample axis wider than the pattern block, so R=2 genuinely
+        # coarsens the draw grid (with S < block/2 the pattern is the
         # identity and R=2 degenerates to the R=1 draws)
         rng = np.random.default_rng(17)
         offsets = rng.uniform(size=n_samples)
         nhis = 10 ** rng.uniform(20, 22, n_samples)
-        if overrides.pop("sorted_offsets", False):
-            offsets = np.sort(offsets)
     cfg = dict(
         per_device_batch=1, sample_chunk=32, dtype="float64",
         store_sample_likelihoods=False,
@@ -227,20 +150,11 @@ def _run_lean(problem, prior_num, tmp=None, n_samples=None, **overrides):
     )
 
 
-def test_pallas_driver_base_replicates_degenerate_bitmatch(
-    problem, prior_num
-):
-    """Full pallas(-interpret) driver path with R=2: at S < tile/2 the
-    draw pattern is the identity, so — with PRE-SORTED offsets, making
-    the sorted pair axis coincide with the original one (R=2 binds
-    draws to tile lanes, R=1 to original columns; they agree only then)
-    — the R=2 run must reproduce the R=1 catalog BIT-exactly,
-    exercising the windowed kernel, the wrapper's padded-tail
-    re-patterning, and the pattern-tile gating end to end."""
-    kw = dict(
-        dtype="float32", backend="pallas_interpret", n_samples=64,
-        sorted_offsets=True,
-    )
+def test_driver_base_replicates_degenerate_bitmatch(problem, prior_num):
+    """At S < REPLICATE_TILE/2 the draw pattern is the identity, so the
+    R=2 run must reproduce the R=1 catalog BIT-exactly (float32, the
+    production dtype)."""
+    kw = dict(dtype="float32", n_samples=64)
     r1 = _run_lean(problem, prior_num, **kw)
     r2 = _run_lean(problem, prior_num, base_replicates=2, **kw)
     np.testing.assert_array_equal(
@@ -257,15 +171,11 @@ def test_fused_lean_driver_base_replicates(problem, prior_num, tmp_path):
     """Driver wiring: R=2 shares stage 1 with R=1 exactly, draws the
     pair stage on the coarse grid deterministically, and never mixes
     checkpoints with R=1 runs."""
-    S = 600  # wider than the 256 kernel tile: n_draws = 344 < 600
+    S = 600  # wider than the 256-column block: n_draws = 344 < 600
     r1 = _run_lean(problem, prior_num, n_samples=S)
-    # the f64 XLA parity path cannot engage the pallas fast path, and
-    # must SAY so — R=2 there is coarsening for no speedup
-    with pytest.warns(UserWarning, match="fast path"):
-        r2a = _run_lean(problem, prior_num, base_replicates=2, n_samples=S,
-                        tmp=tmp_path / "a")
-    with pytest.warns(UserWarning, match="fast path"):
-        r2b = _run_lean(problem, prior_num, base_replicates=2, n_samples=S)
+    r2a = _run_lean(problem, prior_num, base_replicates=2, n_samples=S,
+                    tmp=tmp_path / "a")
+    r2b = _run_lean(problem, prior_num, base_replicates=2, n_samples=S)
 
     # stage 1 is untouched by the base-draw change
     np.testing.assert_array_equal(
@@ -317,81 +227,35 @@ def test_fused_lean_driver_base_replicates(problem, prior_num, tmp_path):
         _run_lean(problem, prior_num, base_replicates=3)
 
 
-def test_base_replicates_auto_default(problem, prior_num):
-    """base_replicates=None (the r4 production default) resolves to
-    FUSED_LEAN_BASE_REPLICATES exactly when the pallas pair fast path
-    engages (draw-level identity with the explicit setting), and to
-    R=1 on the XLA parity path — without emitting the coarsening-for-
-    nothing warning in either case."""
-    from gp_dla_detection_tpu.parallel.sharded_multi import (
-        FUSED_LEAN_BASE_REPLICATES,
-    )
-
-    kw = dict(
-        dtype="float32", backend="pallas_interpret", n_samples=64,
-        sorted_offsets=True,
-    )
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # auto must never warn
-        auto_p = _run_lean(problem, prior_num, **kw)  # default: None
-    r4 = _run_lean(
-        problem, prior_num, base_replicates=FUSED_LEAN_BASE_REPLICATES,
-        **kw,
-    )
-    np.testing.assert_array_equal(
-        auto_p.log_likelihoods_dla2, r4.log_likelihoods_dla2
-    )
-    np.testing.assert_array_equal(
-        auto_p.map_base_sample_inds, r4.map_base_sample_inds
-    )
-    np.testing.assert_array_equal(auto_p.model_posteriors, r4.model_posteriors)
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        auto_x = _run_lean(problem, prior_num, n_samples=64)  # xla f64
-    r1 = _run_lean(problem, prior_num, base_replicates=1, n_samples=64)
-    np.testing.assert_array_equal(
-        auto_x.log_likelihoods_dla2, r1.log_likelihoods_dla2
-    )
-    np.testing.assert_array_equal(auto_x.model_posteriors, r1.model_posteriors)
+def test_base_replicates_default_is_one(problem, prior_num):
+    """base_replicates=None resolves to R=1 — the classic
+    one-draw-per-column resample — in both dtypes, without a warning."""
+    for dtype in ("float32", "float64"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            auto = _run_lean(problem, prior_num, dtype=dtype, n_samples=64)
+        r1 = _run_lean(
+            problem, prior_num, dtype=dtype, base_replicates=1, n_samples=64
+        )
+        np.testing.assert_array_equal(
+            auto.log_likelihoods_dla2, r1.log_likelihoods_dla2
+        )
+        np.testing.assert_array_equal(
+            auto.map_base_sample_inds, r1.map_base_sample_inds
+        )
+        np.testing.assert_array_equal(auto.model_posteriors, r1.model_posteriors)
 
 
-def test_auto_r_mid_run_degradation_contract(problem, prior_num, tmp_path,
-                                             monkeypatch):
-    """Auto-R x ladder degradation (VERDICT r4 #6): R resolves ONCE,
-    from the configuration's original first rung, and the R-coarse draw
-    PATTERN is fixed for the whole run — a rung degradation after batch
-    k only drops the pair kernel's replicated-lane shortcut
-    (base_replicates=1 per degraded rung), never the draw-to-pair
-    binding, because the fused driver always feeds the pair stage the
-    z-sorted axis regardless of rung.  So a run whose later batches ran
-    on a degraded rung must reproduce the healthy run's catalog
-    decisions, with evidences at kernel-noise tolerance, under the SAME
-    checkpoint fingerprint.
-
-    Degradation is emulated exactly as it manifests across a process
-    restart: complete a healthy run, surgically remove the LAST batches
-    from its checkpoint manifest, and resume with the pair ladder's top
-    rungs removed (monkeypatched ladder_configs) — the resumed batches
-    then compute on the degraded rung while the early ones load from
-    rung-0 checkpoints, i.e. a mixed-rung catalog under one
-    fingerprint.  (A process RESTART under auto on a machine where the
-    fast path can no longer engage instead re-resolves R=1, which
-    changes the fingerprint and loudly invalidates the checkpoints —
-    also the intended contract; pinning base_replicates=4 here mirrors
-    the in-process mid-run case, where R never re-resolves.)
-    """
+def test_replicated_run_resumes_from_checkpoints(problem, prior_num, tmp_path):
+    """An R=4 run interrupted after half its batches resumes from its
+    checkpoints under the same fingerprint and reproduces the
+    uninterrupted catalog exactly."""
     import json
 
-    import gp_dla_detection_tpu.inference as inf
+    kw = dict(dtype="float32", n_samples=600, base_replicates=4)
+    ck = tmp_path / "r4"
+    whole = _run_lean(problem, prior_num, tmp=ck, **kw)
 
-    kw = dict(dtype="float32", backend="pallas_interpret", n_samples=600)
-    ck = tmp_path / "mix"
-    healthy = _run_lean(
-        problem, prior_num, tmp=ck, base_replicates=4, **kw
-    )
-
-    # remove the last ~half of the completed batches
     man_path = ck / "fused" / "manifest.json"
     man = json.loads(man_path.read_text())
     done = sorted(man["completed_batches"])
@@ -402,45 +266,14 @@ def test_auto_r_mid_run_degradation_contract(problem, prior_num, tmp_path,
     man["completed_batches"] = keep
     man_path.write_text(json.dumps(man))
 
-    # degrade the PAIR ladder only: drop its top two rungs, so the
-    # resumed first rung is (interpret, tile=128) — pattern_ok False,
-    # kernel shortcut off, draw pattern unchanged
-    orig = inf.ladder_configs
-
-    def degraded(backend, npx, dtype, tile=None, two_dla=False,
-                 windowed=True):
-        cfg = orig(backend, npx, dtype, tile=tile, two_dla=two_dla,
-                   windowed=windowed)
-        return cfg[2:] if two_dla and len(cfg) > 2 else cfg
-
-    monkeypatch.setattr(inf, "ladder_configs", degraded)
-    # the degraded configuration SAYS it cannot engage the fast path
-    with pytest.warns(UserWarning, match="fast path"):
-        mixed = _run_lean(
-            problem, prior_num, tmp=ck, base_replicates=4, **kw
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no "incompatible checkpoints"
+        resumed = _run_lean(problem, prior_num, tmp=ck, **kw)
+    assert json.loads(man_path.read_text())["fingerprint"] == man["fingerprint"]
+    for attr in (
+        "log_likelihoods_dla2", "map_sample_inds2", "map_base_sample_inds",
+        "model_posteriors",
+    ):
+        np.testing.assert_array_equal(
+            getattr(resumed, attr), getattr(whole, attr), err_msg=attr
         )
-
-    # same fingerprint: the early batches were REUSED, not recomputed
-    man2 = json.loads(man_path.read_text())
-    assert man2["fingerprint"] == man["fingerprint"]
-
-    # catalog decisions identical; evidences at kernel-noise tolerance
-    # (the degraded rung windows a different tile size)
-    np.testing.assert_array_equal(
-        np.argmax(mixed.model_posteriors, axis=1),
-        np.argmax(healthy.model_posteriors, axis=1),
-    )
-    np.testing.assert_array_equal(
-        mixed.map_base_sample_inds >= 0,
-        healthy.map_base_sample_inds >= 0,
-    )
-    both = np.isfinite(healthy.log_likelihoods_dla2)
-    np.testing.assert_allclose(
-        mixed.log_likelihoods_dla2[both],
-        healthy.log_likelihoods_dla2[both],
-        rtol=2e-4, atol=2e-3,
-    )
-    # stage 1 (undegraded ladder) is bit-identical
-    np.testing.assert_array_equal(
-        mixed.single.log_likelihoods_dla, healthy.single.log_likelihoods_dla
-    )

@@ -4,11 +4,11 @@ on synthetic files fabricated with our own FITS writer."""
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.catalog import build_catalog
-from gp_dla_detection_tpu.io.fits import read_bintable, write_bintable
-from gp_dla_detection_tpu.params import Parameters
+from gp_dla_detection.catalog import build_catalog
+from gp_dla_detection.io.fits import read_bintable, write_bintable
+from gp_dla_detection.params import Parameters
 from conftest import write_spec_file
-from gp_dla_detection_tpu.spectra import (
+from gp_dla_detection.spectra import (
     FILTER_MIN_PIXELS,
     FILTER_NORMALIZATION,
     RaggedSpectra,
@@ -105,7 +105,7 @@ def test_build_catalog_and_preload(synthetic_release, tmp_path):
 
     # roundtrip both artifacts
     cat.save(tmp_path / "catalog.npz")
-    from gp_dla_detection_tpu.catalog import Catalog
+    from gp_dla_detection.catalog import Catalog
 
     cat2 = Catalog.load(tmp_path / "catalog.npz")
     np.testing.assert_array_equal(cat2.filter_flags, cat.filter_flags)
@@ -128,7 +128,7 @@ def test_build_catalog_and_preload(synthetic_release, tmp_path):
 def test_fits_header_comment_with_apostrophe(tmp_path):
     """Regression (code review): an apostrophe inside a numeric card's
     comment must not suppress comment stripping."""
-    from gp_dla_detection_tpu.io.fits import read_bintable, write_bintable
+    from gp_dla_detection.io.fits import read_bintable, write_bintable
 
     write_bintable(
         tmp_path / "t.fits", ["A"], [np.arange(4.0).astype(np.float32)]

@@ -4,13 +4,13 @@ from pathlib import Path
 
 import numpy as np
 
-from gp_dla_detection_tpu.download import (
+from gp_dla_detection.download import (
     CATALOG_URLS,
     download_plan,
     download_spectra_command,
     extract_dla_catalog,
 )
-from gp_dla_detection_tpu.params import Parameters
+from gp_dla_detection.params import Parameters
 
 
 def test_download_plan_covers_all_sources(tmp_path):

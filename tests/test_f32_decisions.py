@@ -1,9 +1,9 @@
 """Decision-level f32 accuracy pins (CI-sized version of
 validation/f32_decision_study.py).
 
-The production path (float32, fused Pallas kernel via interpret mode on
-CPU, f16 result streaming) must agree with the f64 XLA oracle at the
-level that matters for the catalog: posterior p_DLA within a tight
+The production path (float32, f16 result streaming) must agree with the
+f64 oracle at the level that matters for the catalog: posterior p_DLA
+within a tight
 band, and NO classification flips at the p = 0.9 threshold away from
 the threshold's immediate neighborhood.  The reference's corresponding
 claim is exact (f64-to-f64) catalog reproduction; this is its honest
@@ -19,7 +19,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "validation"))
 
 from f32_decision_study import build_problem, compare  # noqa: E402
 
-from gp_dla_detection_tpu.parallel import (  # noqa: E402
+from gp_dla_detection.parallel import (  # noqa: E402
     ShardedRunConfig,
     make_mesh,
     process_spectra_sharded,
@@ -37,16 +37,15 @@ def test_f32_path_changes_no_decisions():
         model, samples.offset_samples, samples.nhi_samples, spectra,
         prior_z, prior_f, params=params, mesh=mesh,
         config=ShardedRunConfig(
-            per_device_batch=3, backend="pallas_interpret",
-            dtype="float32", stream_dtype="float16", sample_chunk=200,
+            per_device_batch=3, dtype="float32", stream_dtype="float16",
+            sample_chunk=200,
         ),
     )
     res64 = process_spectra_sharded(
         model, samples.offset_samples, samples.nhi_samples, spectra,
         prior_z, prior_f, params=params, mesh=mesh,
         config=ShardedRunConfig(
-            per_device_batch=3, backend="xla", dtype="float64",
-            sample_chunk=200,
+            per_device_batch=3, dtype="float64", sample_chunk=200,
         ),
     )
     stats = compare(res32, res64)

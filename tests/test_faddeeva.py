@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from scipy.special import voigt_profile, wofz
 
-from gp_dla_detection_tpu.ops import lyman_series as lines
-from gp_dla_detection_tpu.ops.faddeeva import voigt_function, wofz_real
+from gp_dla_detection.ops import lyman_series as lines
+from gp_dla_detection.ops.faddeeva import voigt_function, wofz_real
 
 SIGMA = lines.DOPPLER_SIGMA
 SQRT2 = np.sqrt(2.0)
@@ -65,7 +65,7 @@ def test_float32_mode_reasonable():
 def test_wofz_real_fast_accuracy():
     """Fast path: <1.6e-5 relative at all Lyman-series y values (f64
     eval; measured 1.2e-5 worst-case at the production degree-12 G)."""
-    from gp_dla_detection_tpu.ops.faddeeva import wofz_real_fast
+    from gp_dla_detection.ops.faddeeva import wofz_real_fast
 
     x = np.concatenate(
         [np.linspace(0.0, 10.0, 20001), 10 ** np.linspace(1.0, 4.2, 3001)]
@@ -77,7 +77,7 @@ def test_wofz_real_fast_accuracy():
 
 
 def test_voigt_absorption_fast_close_to_accurate():
-    from gp_dla_detection_tpu.ops.voigt import voigt_absorption
+    from gp_dla_detection.ops.voigt import voigt_absorption
 
     lam = 10 ** (np.log10(3500.0) + 1e-4 * np.arange(900))
     rng = np.random.default_rng(3)
@@ -96,7 +96,7 @@ def test_g_function_vs_dawson_everywhere():
     weighted for."""
     from scipy.special import dawsn
 
-    from gp_dla_detection_tpu.ops.faddeeva import g_function
+    from gp_dla_detection.ops.faddeeva import g_function
 
     # 2x dawsn(x) - 1 cancels catastrophically in f64 beyond x ~ 1e4
     # (G ~ 1/(2x^2) sinks below the eps of the ~1 terms), so the oracle
@@ -129,7 +129,7 @@ def test_wofz_real_fast_property():
     from hypothesis import given, settings, strategies as st
     from scipy.special import wofz
 
-    from gp_dla_detection_tpu.ops.faddeeva import wofz_real_fast
+    from gp_dla_detection.ops.faddeeva import wofz_real_fast
 
     @settings(max_examples=200, deadline=None)
     @given(

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 
 from conftest import write_spec_file
-from gp_dla_detection_tpu.io.native import native_available, read_spec_batch
-from gp_dla_detection_tpu.spectra import read_spec
+from gp_dla_detection.io.native import native_available, read_spec_batch
+from gp_dla_detection.spectra import read_spec
 
 MAX_PIXELS = 512
 
@@ -142,7 +142,7 @@ def test_row_boundary_truncation_raises(tmp_path):
     """A file cut exactly at a row boundary used to parse 'successfully'
     with fewer rows than NAXIS2 claims (np.frombuffer shrinks silently);
     corrupt data must raise, not lose pixels."""
-    from gp_dla_detection_tpu.io import read_bintable
+    from gp_dla_detection.io import read_bintable
 
     raw = _valid_spec_bytes(tmp_path)
     table = read_bintable(tmp_path / "valid.fits")

@@ -18,9 +18,9 @@ FIXTURE = Path(__file__).parent / "fixtures" / "golden_evidences.npz"
 def golden_problem():
     import jax.numpy as jnp
 
-    from gp_dla_detection_tpu.inference import batch_log_likelihoods
-    from gp_dla_detection_tpu.models.qso_model import GPModel
-    from gp_dla_detection_tpu.params import NullModelParams, Parameters
+    from gp_dla_detection.inference import batch_log_likelihoods
+    from gp_dla_detection.models.qso_model import GPModel
+    from gp_dla_detection.params import NullModelParams, Parameters
 
     rng = np.random.default_rng(20160446)  # arXiv id of the paper
     params = Parameters(null_model=NullModelParams(k=6))

@@ -10,15 +10,15 @@ import numpy as np
 import pytest
 from scipy.stats import multivariate_normal
 
-from gp_dla_detection_tpu.inference import (
+from gp_dla_detection.inference import (
     PaddedSpectra,
     correct_prior_dla_flags,
     dla_rate_priors,
     finalize_posteriors,
     process_spectra,
 )
-from gp_dla_detection_tpu.models.qso_model import GPModel
-from gp_dla_detection_tpu.params import (
+from gp_dla_detection.models.qso_model import GPModel
+from gp_dla_detection.params import (
     LYA_WAVELENGTH,
     LYMAN_LIMIT,
     Parameters,
@@ -221,16 +221,6 @@ def test_reference_misaligned_absorption_quirk(setup):
         rtol=1e-12,
     )
 
-    # the pallas backend refuses the parity mode loudly
-    import pytest as _pytest
-
-    with _pytest.raises(ValueError, match="xla"):
-        process_spectra(
-            model, offsets, nhis, spec, prior_z, prior_flags,
-            params=params, dtype=np.float32, backend="pallas",
-            reference_misaligned_absorption=True,
-        )
-
 
 def test_dla_rate_priors_counting():
     params = Parameters()
@@ -267,7 +257,7 @@ def test_dla_rate_priors_degenerate_edges():
         )
         assert np.isclose(lp_dla[0], 0.0) and lp_no[0] == -np.inf
     # degenerate prior still yields finite, normalized posteriors
-    from gp_dla_detection_tpu.inference import finalize_posteriors
+    from gp_dla_detection.inference import finalize_posteriors
 
     post = finalize_posteriors(
         np.array([0.0]), np.array([-np.inf]), np.array([-10.0]),
@@ -336,7 +326,7 @@ def test_windowed_fast_path_matches(setup):
     """The z-sorted windowed Voigt fast path must agree with the plain
     f32 path to fp32 accumulation accuracy."""
     import jax.numpy as jnp
-    from gp_dla_detection_tpu.inference import (
+    from gp_dla_detection.inference import (
         batch_log_likelihoods,
         compute_sample_window,
     )
@@ -380,9 +370,9 @@ def test_window_bound_covers_exact_chunk_spread():
     worst case over the z_DLA search range is log10(1+spread*R)/spacing
     with R = LYA/LY_LIMIT - 1.  The sized window minus both margins
     must cover that for every chunking."""
-    from gp_dla_detection_tpu.inference import compute_sample_window
-    from gp_dla_detection_tpu.ops.voigt import WINDOW_MARGIN
-    from gp_dla_detection_tpu.params import LYA_WAVELENGTH, LYMAN_LIMIT
+    from gp_dla_detection.inference import compute_sample_window
+    from gp_dla_detection.ops.voigt import WINDOW_MARGIN
+    from gp_dla_detection.params import LYA_WAVELENGTH, LYMAN_LIMIT
 
     spacing = 1e-4
     ratio = LYA_WAVELENGTH / LYMAN_LIMIT - 1.0
@@ -400,28 +390,27 @@ def test_window_bound_covers_exact_chunk_spread():
         )
 
 
-def test_ladder_pallas_f64_is_a_config_error():
-    """backend='pallas' with a non-f32 dtype used to build a single
-    ladder rung that could never start (Mosaic has no f64) and
-    hard-failed mid-run with an opaque kernel error; it must be a clear
-    config-time ValueError."""
-    from gp_dla_detection_tpu.inference import ladder_configs
+def test_sample_window_independent_of_line_count():
+    """A chunk's line-center spread in pixels is the same for every
+    Lyman line, so the window size has no line-count input and the
+    31-line series is windowed like the 3-line one."""
+    import inspect
 
-    with pytest.raises(ValueError, match="float32-only"):
-        ladder_configs("pallas", 1286, np.float64)
-    with pytest.raises(ValueError, match="float32-only"):
-        ladder_configs("pallas_interpret", 1286, np.float64)
-    # f32 pallas and any-dtype xla remain valid
-    assert ladder_configs("pallas", 1286, np.float32)[0][0] == "pallas"
-    assert ladder_configs("xla", 1286, np.float64) == [("xla", None, False)]
+    from gp_dla_detection.inference import compute_sample_window
+
+    assert "num_lines" not in inspect.signature(compute_sample_window).parameters
+    offsets = np.linspace(0.0, 1.0, 10_000)
+    window = compute_sample_window(offsets, 256, 1280)
+    assert window is not None and window % 8 == 0 and window < 1280
+    assert compute_sample_window(offsets, 10_000, 1280) is None
 
 
-def test_samples_sorted_skips_identity_unsort(setup):
-    """samples_sorted=True on pre-sorted samples must reproduce the
-    default path's likelihoods exactly (modulo the caller-side column
-    permutation) on BOTH backends."""
+def test_windowed_columns_follow_sample_order(setup):
+    """The windowed path z-sorts the samples inside the graph and
+    un-sorts the result: permuting the input samples permutes the
+    output columns exactly."""
     import jax.numpy as jnp
-    from gp_dla_detection_tpu.inference import (
+    from gp_dla_detection.inference import (
         batch_log_likelihoods,
         compute_sample_window,
     )
@@ -430,7 +419,7 @@ def test_samples_sorted_skips_identity_unsort(setup):
     dtype = np.float32
     order = np.argsort(offsets, kind="stable")
 
-    def run(off, nh, backend, **kw):
+    def run(off, nh, **kw):
         return np.asarray(
             batch_log_likelihoods(
                 jnp.asarray(spec.wavelengths, dtype),
@@ -447,22 +436,15 @@ def test_samples_sorted_skips_identity_unsort(setup):
                 model.log_beta,
                 jnp.asarray(off, dtype),
                 jnp.asarray(nh, dtype),
-                params=params, sample_chunk=8, backend=backend, **kw,
+                params=params, sample_chunk=8, **kw,
             )["sample_log_likelihoods_dla"]
         )
 
     window = compute_sample_window(offsets, 8, spec.wavelengths.shape[1] + 6)
     assert window is not None
-    for backend in ("xla", "pallas_interpret"):
-        kw = {"sample_window": window}
-        if backend == "pallas_interpret":
-            kw["tile"] = 8
-        default = run(offsets, nhis, backend, **kw)
-        sorted_out = run(
-            offsets[order], nhis[order], backend,
-            samples_sorted=True, **kw,
-        )
-        np.testing.assert_array_equal(sorted_out[:, np.argsort(order)], default)
+    default = run(offsets, nhis, sample_window=window)
+    permuted = run(offsets[order], nhis[order], sample_window=window)
+    np.testing.assert_array_equal(permuted, default[:, order])
 
 
 def test_windowed_large_window_coverage():
@@ -471,7 +453,7 @@ def test_windowed_large_window_coverage():
     silently corrupting their likelihoods.  Exercise a large window
     (big chunk -> wide spread) and demand agreement with the plain path."""
     import jax.numpy as jnp
-    from gp_dla_detection_tpu.inference import (
+    from gp_dla_detection.inference import (
         batch_log_likelihoods,
         compute_sample_window,
     )
@@ -581,40 +563,10 @@ def test_search_range_policy_methods():
     assert np.isclose(params.min_z_dla(lam, z_qso), expected)
 
 
-def test_pallas_tile_plan_and_ladder():
-    """VMEM degradation plan: measured ceiling ~3200px x 256 samples
-    (halved for pairs), tiles halve down to one lane group, XLA last."""
-    from gp_dla_detection_tpu.inference import (
-        pallas_config_ladder,
-        pallas_tile_plan,
-    )
-
-    assert pallas_tile_plan(1286) == 256
-    assert pallas_tile_plan(3300) == 128
-    assert pallas_tile_plan(7000) is None
-    assert pallas_tile_plan(1286, two_dla=True) == 256
-    assert pallas_tile_plan(3300, two_dla=True) is None
-
-    assert pallas_config_ladder("xla", 1286) == [("xla", None, False)]
-    # per tile: windowed first, then full-grid (the 31-line windowed
-    # kernel crashes the TPU compiler while full-grid compiles — the
-    # full-grid rung keeps such runs on the fused kernel)
-    assert pallas_config_ladder("pallas", 1286) == [
-        ("pallas", 256, True), ("pallas", 256, False),
-        ("pallas", 128, True), ("pallas", 128, False),
-        ("xla", None, False),
-    ]
-    assert pallas_config_ladder("pallas", 1286, windowed=False) == [
-        ("pallas", 256, False), ("pallas", 128, False), ("xla", None, False),
-    ]
-    assert pallas_config_ladder("pallas", 7000) == [("xla", None, False)]
-
-
-def test_process_spectra_long_spectrum_completes_via_fallback():
-    """backend='pallas' on a config the kernel can't run (here: CPU, and
-    P=4096 also trips the tile planner) must degrade gracefully to XLA
-    with a warning and produce the XLA numbers, not hard-fail."""
-    from gp_dla_detection_tpu.params import NullModelParams
+def test_long_spectrum_runs_on_the_xla_path():
+    """A 4096-pixel spectrum (past any fixed on-chip tile) runs through
+    the one evidence path, finite and equal to the per-spectrum run."""
+    from gp_dla_detection.params import NullModelParams
 
     rng = np.random.default_rng(5)
     params = Parameters(null_model=NullModelParams(k=3))
@@ -645,194 +597,91 @@ def test_process_spectra_long_spectrum_completes_via_fallback():
     prior_z = rng.uniform(2.0, 3.5, 100)
     flags = rng.uniform(size=100) < 0.3
 
-    with pytest.warns(UserWarning, match="falling back"):
-        res_p = process_spectra(
-            model, offsets, nhis, spectra, prior_z, flags,
-            params=params, batch_size=B, sample_chunk=24,
-            dtype=np.float32, backend="pallas",
-        )
-    res_x = process_spectra(
+    res = process_spectra(
         model, offsets, nhis, spectra, prior_z, flags,
-        params=params, batch_size=B, sample_chunk=24,
-        dtype=np.float32, backend="xla",
+        params=params, batch_size=B, sample_chunk=24, dtype=np.float32,
     )
+    one = process_spectra(
+        model, offsets, nhis, spectra.slice(slice(1, 2)), prior_z, flags,
+        params=params, batch_size=1, sample_chunk=24, dtype=np.float32,
+    )
+    assert np.isfinite(res.sample_log_likelihoods_dla).all()
     np.testing.assert_allclose(
-        res_p.sample_log_likelihoods_dla, res_x.sample_log_likelihoods_dla
+        res.sample_log_likelihoods_dla[1], one.sample_log_likelihoods_dla[0],
+        rtol=1e-5,
     )
-    np.testing.assert_allclose(res_p.p_dlas, res_x.p_dlas)
 
 
-def test_pallas_tile_plan_lane_aligned():
-    """Tile plans must be multiples of the 128-lane Mosaic minimum: a
-    request like tile=192 plans 128 (halving to the sub-minimum 96
-    would fail to lower), and never returns below the minimum."""
-    from gp_dla_detection_tpu.inference import pallas_tile_plan
-
-    assert pallas_tile_plan(4000, tile=192) == 128
-    for num_px in (1286, 3200, 4000, 8000):
-        for tile in (129, 192, 200, 256, 300, None):
-            plan = pallas_tile_plan(num_px, tile=tile)
-            assert plan is None or (plan % 128 == 0 and 128 <= plan <= 256)
-
-
-def test_ladder_runner_walks_rungs_and_persists():
-    """LadderRunner retries the next rung on failure with a warning,
-    and LATER calls start from the reached rung (failed rungs are not
-    retried per batch)."""
-    import warnings
-
-    from gp_dla_detection_tpu.inference import LadderRunner
-
-    configs = [
-        ("pallas", 256, True),
-        ("pallas", 256, False),
-        ("xla", None, False),
-    ]
-    calls = []
-
-    def build(backend, tile, windowed):
-        def fn(x):
-            calls.append((backend, tile, windowed))
-            if windowed:
-                raise RuntimeError("windowed lowering failed")
-            return x + 1
-
-        return fn
-
-    runner = LadderRunner(configs, build)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        assert runner(1) == 2
-    assert runner.config == ("pallas", 256, False)
-    # the warning names both rungs AND carries the original error text
-    # so misclassified failures stay visible (ADVICE r2)
-    assert len(caught) == 1
-    msg = str(caught[0].message)
-    assert msg.startswith(
-        "evidence backend 'pallas' (tile=256, windowed) failed to "
-        "compile/fit; falling back to 'pallas' (tile=256)"
-    )
-    assert "RuntimeError: windowed lowering failed" in msg
-    # second call goes straight to the reached rung
-    n = len(calls)
-    assert runner(5) == 6
-    assert calls[n:] == [("pallas", 256, False)]
-
-    # exhausting the ladder re-raises the original failure
-    def fail_oom(*c):
-        def fn(x):
-            raise RuntimeError("RESOURCE_EXHAUSTED: scoped vmem")
-
-        return fn
-
-    always_fail = LadderRunner([("pallas", 128, True)], fail_oom)
-    import pytest as _pytest
-
-    with _pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):
-        always_fail(0)
-
-
-def test_ladder_runner_reraises_non_resource_errors():
-    """A data/shape error on the fastest rung must propagate, not walk
-    the ladder: degrading would mask the real bug (VERDICT r2 #7)."""
-    import pytest as _pytest
-
-    from gp_dla_detection_tpu.inference import LadderRunner, ladder_recoverable
-
-    configs = [("pallas", 256, True), ("xla", None, False)]
-    calls = []
-
-    def build(backend, tile, windowed):
-        def fn(x):
-            calls.append(backend)
-            raise ValueError("operands have incompatible shapes (2, 3) vs (4,)")
-
-        return fn
-
-    runner = LadderRunner(configs, build)
-    with _pytest.raises(ValueError, match="incompatible shapes"):
-        runner(1)
-    assert calls == ["pallas"]  # never reached the XLA rung
-
-    # classification: resource/compile-class errors recover, data errors
-    # re-raise, jax runtime errors always recover
-    assert ladder_recoverable(RuntimeError("RESOURCE_EXHAUSTED: vmem"))
-    assert ladder_recoverable(RuntimeError("Mosaic failed to compile kernel"))
-    assert ladder_recoverable(NotImplementedError("unsupported in pallas"))
-    assert not ladder_recoverable(ValueError("bad shapes"))
-    assert not ladder_recoverable(AssertionError("nan in result"))
-    assert not ladder_recoverable(ZeroDivisionError("division by zero"))
+def _failing_evaluator(*args, **kwargs):
     from jax.errors import JaxRuntimeError
 
-    assert ladder_recoverable(JaxRuntimeError("INTERNAL: device error"))
+    raise JaxRuntimeError("RESOURCE_EXHAUSTED: out of memory")
 
 
-def test_fetch_with_ladder_recovers_async_failures():
-    """A failure surfacing at the result fetch (dispatch being async
-    past a rung's first batch) walks the ladder and re-runs the batch;
-    non-recoverable fetch errors re-raise."""
-    import pytest as _pytest
+@pytest.mark.parametrize(
+    "driver",
+    ["process_spectra", "process_spectra_multi", "sharded", "sharded_multi",
+     "fused_lean"],
+)
+def test_drivers_raise_evaluator_failures(driver, monkeypatch):
+    """Every driver dispatches its one evaluator: a compile, lowering or
+    out-of-memory failure propagates — no driver retries on another
+    configuration or backend, and nothing is printed as a warning."""
+    import warnings
 
-    from gp_dla_detection_tpu.inference import LadderRunner, fetch_with_ladder
+    from jax.errors import JaxRuntimeError
 
-    configs = [("pallas", 256, True), ("xla", None, False)]
-    runner = LadderRunner(configs, lambda b, t, w: (lambda x: (b, x + 1)))
+    from gp_dla_detection import inference, multi_dla
+    from gp_dla_detection.parallel import (
+        ShardedRunConfig,
+        make_mesh,
+        process_spectra_multi_sharded,
+        process_spectra_sharded,
+        sharded_inference,
+        sharded_multi,
+    )
 
-    def fetch(out):
-        backend, val = out
-        if backend == "pallas":
-            raise RuntimeError("RESOURCE_EXHAUSTED: ran out of vmem")
-        return val
+    rng = np.random.default_rng(3)
+    params = Parameters()
+    model = make_model(rng, k=3)
+    spec = make_spectrum(rng, z_qso=3.0, P=256, n_real=250)
+    offsets = rng.uniform(size=16)
+    nhis = 10 ** rng.uniform(20.0, 21.5, 16)
+    prior_z = rng.uniform(2.0, 3.5, 50)
+    prior_num = (rng.uniform(size=50) < 0.3).astype(int)
+    failing = lambda *a, **k: _failing_evaluator
 
-    with _pytest.warns(UserWarning, match="falling back"):
-        assert fetch_with_ladder(runner, runner(7), (7,), fetch) == 8
-    assert runner.config == ("xla", None, False)
-
-    def bad_fetch(out):
-        raise ValueError("corrupt result")
-
-    with _pytest.raises(ValueError, match="corrupt result"):
-        fetch_with_ladder(runner, runner(7), (7,), bad_fetch)
-
-    # classifier must NOT treat generic words in ordinary data errors as
-    # recoverable (they would silently retry the real bug on every rung)
-    from gp_dla_detection_tpu.inference import ladder_recoverable
-
-    assert not ladder_recoverable(ValueError("min_z must be lower than max_z"))
-    assert not ladder_recoverable(ValueError("unknown backend 'pallas2'"))
-    assert not ladder_recoverable(TypeError("XLA-incompatible object passed"))
-
-
-def test_fetch_with_ladder_stale_rung_failures_advance_once():
-    """With pipelined dispatch (depth >= 2) several batches are in
-    flight on the same rung; when it fails, each surfaces the SAME
-    stale error at its fetch.  Only the first may advance the ladder —
-    the rest must retry on the already-advanced rung, not burn a
-    further rung each (which would exhaust the ladder outright)."""
-    import pytest as _pytest
-
-    from gp_dla_detection_tpu.inference import LadderRunner, fetch_with_ladder
-
-    configs = [("pallas", 256, True), ("xla", None, False)]
-    runner = LadderRunner(configs, lambda b, t, w: (lambda x: (b, x + 1)))
-
-    def fetch(out):
-        backend, val = out
-        if backend == "pallas":
-            raise RuntimeError("RESOURCE_EXHAUSTED: ran out of vmem")
-        return val
-
-    # both batches dispatched on rung 0 before either fetch runs
-    out_a, idx_a = runner(7), runner.idx
-    out_b, idx_b = runner(9), runner.idx
-    with _pytest.warns(UserWarning, match="falling back"):
-        assert fetch_with_ladder(
-            runner, out_a, (7,), fetch, dispatch_idx=idx_a
-        ) == 8
-    assert runner.config == ("xla", None, False)
-    # batch b's stale rung-0 failure must NOT advance past the ladder's
-    # last rung (pre-fix this re-raised with the ladder "exhausted")
-    assert fetch_with_ladder(
-        runner, out_b, (9,), fetch, dispatch_idx=idx_b
-    ) == 10
-    assert runner.config == ("xla", None, False)
+    if driver == "process_spectra":
+        monkeypatch.setattr(inference, "batch_log_likelihoods", _failing_evaluator)
+        run = lambda: inference.process_spectra(
+            model, offsets, nhis, spec, prior_z, prior_num >= 1,
+            params=params, batch_size=1, sample_chunk=8,
+        )
+    elif driver == "process_spectra_multi":
+        monkeypatch.setattr(multi_dla, "make_batch_dla2_fn", failing)
+        run = lambda: multi_dla.process_spectra_multi(
+            model, offsets, nhis, spec, prior_z, prior_num,
+            params=params, batch_size=1, sample_chunk=8,
+        )
+    else:
+        config = ShardedRunConfig(
+            per_device_batch=1, sample_chunk=8,
+            store_sample_likelihoods=driver != "fused_lean",
+        )
+        mesh = make_mesh(1)
+        if driver == "sharded":
+            monkeypatch.setattr(sharded_inference, "single_evaluator", failing)
+            run = lambda: process_spectra_sharded(
+                model, offsets, nhis, spec, prior_z, prior_num >= 1,
+                params=params, mesh=mesh, config=config,
+            )
+        else:
+            monkeypatch.setattr(sharded_multi, "make_batch_dla2_fn", failing)
+            run = lambda: process_spectra_multi_sharded(
+                model, offsets, nhis, spec, prior_z, prior_num,
+                params=params, mesh=mesh, config=config,
+            )
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(JaxRuntimeError, match="RESOURCE_EXHAUSTED"):
+            run()

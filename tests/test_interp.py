@@ -10,13 +10,13 @@ exact knots and outside the grid.
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.ops.interp import (
+from gp_dla_detection.ops.interp import (
     interp1,
     interp1_uniform,
     interp_columns,
     interp_columns_uniform,
 )
-from gp_dla_detection_tpu.params import NullModelParams
+from gp_dla_detection.params import NullModelParams
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -48,7 +48,7 @@ def test_uniform_bracketing_bit_identical_on_model_grid(dtype):
 def test_stack_interp_bit_identical(dtype):
     """The fused one-gather stack interpolation must equal the per-array
     uniform variants bitwise (it is the inference hot path)."""
-    from gp_dla_detection_tpu.ops.interp import interp_stack_uniform
+    from gp_dla_detection.ops.interp import interp_stack_uniform
 
     grid = NullModelParams().rest_wavelengths().astype(dtype)
     rng = np.random.default_rng(2)

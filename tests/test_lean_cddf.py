@@ -14,11 +14,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.analysis.cddf import DLACatalogue
-from gp_dla_detection_tpu.analysis.lean_catalogue import LeanDLACatalogue
-from gp_dla_detection_tpu.cddf_inputs import CDDFInputs
-from gp_dla_detection_tpu.parallel import ShardedRunConfig, make_mesh
-from gp_dla_detection_tpu.parallel.sharded_multi import (
+from gp_dla_detection.analysis.cddf import DLACatalogue
+from gp_dla_detection.analysis.lean_catalogue import LeanDLACatalogue
+from gp_dla_detection.cddf_inputs import CDDFInputs
+from gp_dla_detection.parallel import ShardedRunConfig, make_mesh
+from gp_dla_detection.parallel.sharded_multi import (
     process_spectra_multi_sharded,
 )
 
@@ -228,16 +228,12 @@ def test_classic_rejects_cddf_flag(problem, prior_num):
         _run(problem, prior_num, lean=False, cddf=True)
 
 
-def test_pallas_interpret_reduction(problem, prior_num, catalogues):
-    """f32 pallas chain: the reduction consumes the SORTED pair axis
-    (order gather + pair-index translation) and must reproduce the f64
-    XLA statistics at f32 tolerance; exact second-DLA entries must come
-    back in original sample numbering."""
+def test_float32_reduction(problem, prior_num, catalogues):
+    """The float32 chain (the production dtype) must reproduce the f64
+    statistics at f32 tolerance; exact second-DLA entries must come back
+    in original sample numbering."""
     cat, _ = catalogues
-    fused = _run(
-        problem, prior_num, lean=True, cddf=True,
-        dtype="float32", backend="pallas_interpret", base_replicates=1,
-    )
+    fused = _run(problem, prior_num, lean=True, cddf=True, dtype="float32")
     _, _, _, offsets, nhis, _, _ = problem
     lean_cat = LeanDLACatalogue.from_results(fused, offsets, np.log10(nhis))
     S = len(offsets)
@@ -260,7 +256,7 @@ def test_mass_accounting(lean, classic):
     """The all-sample mass channel + dump bin must integrate to ~1x the
     normalized weights scaled by p_dla (checked inside the catalogue
     too; here directly against the classic posteriors)."""
-    from gp_dla_detection_tpu.cddf_inputs import CH_P
+    from gp_dla_detection.cddf_inputs import CH_P
 
     inputs: CDDFInputs = lean.cddf_inputs
     mass = inputs.hist[:, CH_P].astype(np.float64).sum((1, 2))
@@ -274,7 +270,7 @@ def test_pipeline_run_analysis_from_lean(problem, prior_num, lean, tmp_path):
     """One-command release path: the analysis stage computes the full
     L7 statistic set directly from a lean artifact with device-reduced
     CDDF inputs (auto-detected by DLACatalogue.from_run)."""
-    from gp_dla_detection_tpu.pipeline import Pipeline, PipelineConfig
+    from gp_dla_detection.pipeline import Pipeline, PipelineConfig
 
     _, _, _, offsets, nhis, _, _ = problem
     lean.save(tmp_path / "processed_qsos_multi_dr12q.npz")

@@ -11,7 +11,7 @@ import warnings
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.multi_dla import (
+from gp_dla_detection.multi_dla import (
     MultiDLAResults,
     base_sample_grid,
     base_sample_perm,
@@ -20,8 +20,8 @@ from gp_dla_detection_tpu.multi_dla import (
     make_base_sample_inds,
     pack_lean_pair,
 )
-from gp_dla_detection_tpu.parallel import ShardedRunConfig, make_mesh
-from gp_dla_detection_tpu.parallel.sharded_multi import (
+from gp_dla_detection.parallel import ShardedRunConfig, make_mesh
+from gp_dla_detection.parallel.sharded_multi import (
     process_spectra_multi_sharded,
 )
 
@@ -205,18 +205,11 @@ def test_fused_lean_matches_classic(problem, prior_num, classic, fused):
     )
 
 
-def test_fused_lean_pallas_interpret(problem, prior_num, classic):
-    """Fused lean on the pallas (interpret) kernels: the pair MAP index
-    is taken on the z-sorted fresh axis on device and must come back in
-    original sample numbering."""
-    # base_replicates pinned to 1: this test compares pair evidences
-    # against the classic host-resampled flow at kernel-noise tolerance;
-    # the auto default (R=4 on pallas) is a different — equally valid —
-    # MC base redraw, covered by tests/test_base_replicates.py
-    fused = _run(
-        problem, prior_num, lean=True,
-        dtype="float32", backend="pallas_interpret", base_replicates=1,
-    )
+def test_fused_lean_float32(problem, prior_num, classic):
+    """Fused lean in float32 (the production dtype) against the classic
+    float64 flow: posteriors and evidences at float32 scale, and MAP
+    indices in original sample numbering."""
+    fused = _run(problem, prior_num, lean=True, dtype="float32")
     assert fused.sample_log_likelihoods_dla2 is None
     np.testing.assert_allclose(
         fused.model_posteriors, classic.model_posteriors, atol=2e-3
@@ -288,8 +281,8 @@ def test_fused_lean_mesh_parity(problem, prior_num):
 
 
 def test_fused_lean_sample_mesh_xla_matches_data_only(problem, prior_num):
-    """XLA backend on a (data x sample) mesh: the partitioner shards
-    the WHOLE fused chain (kernels, lean packs, inverse-CDF resampler's
+    """On a (data x sample) mesh the partitioner shards the WHOLE fused
+    chain (kernels, lean packs, inverse-CDF resampler's
     cumsum/scatter, value gathers) and must reproduce the data-only
     mesh catalog bit-for-bit."""
     ref = _run(problem, prior_num, lean=True, per_device_batch=2)
@@ -306,15 +299,22 @@ def test_fused_lean_sample_mesh_xla_matches_data_only(problem, prior_num):
         )
 
 
-def test_fused_lean_pallas_rejects_sample_mesh(problem, prior_num):
-    # pallas kernels run data-parallel-only here: a sample axis would
-    # silently replicate the kernel work, so the driver must refuse
-    with pytest.raises(ValueError, match="data-only mesh|replicate"):
-        _run(
-            problem, prior_num, lean=True, dtype="float32",
-            backend="pallas_interpret",
-            mesh=make_mesh(sample_parallelism=2),
-        )
+def test_fused_lean_float32_sample_mesh(problem, prior_num):
+    """The float32 fused chain on a (data x sample) mesh reproduces the
+    data-only mesh's catalog decisions and evidences to float32
+    reduction order."""
+    ref = _run(problem, prior_num, lean=True, dtype="float32")
+    out = _run(
+        problem, prior_num, lean=True, dtype="float32", per_device_batch=4,
+        mesh=make_mesh(sample_parallelism=2),
+    )
+    np.testing.assert_array_equal(
+        np.argmax(out.model_posteriors, 1), np.argmax(ref.model_posteriors, 1)
+    )
+    np.testing.assert_allclose(
+        out.single.log_likelihoods_dla, ref.single.log_likelihoods_dla,
+        rtol=1e-5,
+    )
 
 
 def test_fused_lean_rejects_precomputed_single(problem, prior_num, classic):
@@ -352,7 +352,7 @@ def test_lean_multi_save_load_roundtrip(fused, tmp_path):
 
 
 def test_lean_multi_blocks_matrix_consumers(fused, problem, tmp_path):
-    from gp_dla_detection_tpu.io.matio import write_multi_processed_mat
+    from gp_dla_detection.io.matio import write_multi_processed_mat
 
     n = len(fused.model_posteriors)
     with pytest.raises(ValueError, match="lean"):

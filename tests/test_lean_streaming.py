@@ -10,8 +10,8 @@ import warnings
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.inference import InferenceResults, process_spectra
-from gp_dla_detection_tpu.parallel import (
+from gp_dla_detection.inference import InferenceResults, process_spectra
+from gp_dla_detection.parallel import (
     ShardedRunConfig,
     make_mesh,
     process_spectra_sharded,
@@ -70,7 +70,7 @@ def test_pack_lean_nan_semantics():
     sort translation — ascii_catalog semantics)."""
     import jax.numpy as jnp
 
-    from gp_dla_detection_tpu.parallel.streaming import pack_lean
+    from gp_dla_detection.parallel.streaming import pack_lean
 
     rows = np.array(
         [
@@ -123,19 +123,17 @@ def test_lean_checkpoint_resume(problem, tmp_path):
 
 
 def test_lean_sample_axis_sharding(problem):
-    """Lean + fused kernel on a (data x sample) mesh: the MAP argmax is
-    taken in z-sorted sample space on device and must be translated
-    back to original sample numbering."""
+    """Lean float32 on a (data x sample) mesh: the device MAP argmax over
+    the sharded sample axis must come back in original sample
+    numbering."""
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
     single = process_spectra(
         model, offsets, nhis, spectra, prior_z, prior_f,
         params=params, batch_size=4, sample_chunk=32, dtype=np.float32,
-        backend="pallas_interpret",
     )
     lean = _run(
         problem, mesh=make_mesh(sample_parallelism=2),
-        dtype="float32", backend="pallas_interpret",
-        store_sample_likelihoods=False,
+        dtype="float32", store_sample_likelihoods=False,
     )
     expect = np.argmax(single.sample_log_likelihoods_dla, axis=1)
     np.testing.assert_array_equal(lean.map_sample_inds, expect)
@@ -146,11 +144,10 @@ def test_lean_sample_axis_sharding(problem):
 
 def test_lean_no_finite_row_falls_back_to_original_index_zero(problem):
     """A spectrum whose sample likelihoods have no finite entry must get
-    MAP index 0 in ORIGINAL sample numbering even on a sample-sharded
-    mesh (where the device argmax runs in z-sorted space and a naive
-    translation would yield the lowest-z sample instead)."""
+    MAP index 0 in ORIGINAL sample numbering, also on a sample-sharded
+    mesh."""
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
-    from gp_dla_detection_tpu.inference import PaddedSpectra
+    from gp_dla_detection.inference import PaddedSpectra
 
     # fully masked spectrum -> all-NaN likelihood row (known edge)
     mask = np.array(spectra.mask)
@@ -164,7 +161,7 @@ def test_lean_no_finite_row_falls_back_to_original_index_zero(problem):
         params=params, mesh=make_mesh(sample_parallelism=2),
         config=ShardedRunConfig(
             per_device_batch=1, sample_chunk=32, dtype="float32",
-            backend="pallas_interpret", store_sample_likelihoods=False,
+            store_sample_likelihoods=False,
         ),
     )
     assert not np.isfinite(lean.log_likelihoods_dla[3])
@@ -178,7 +175,7 @@ def test_lean_guard_in_sharded_pair_driver(problem):
     lean with a precomputed single stage is still rejected at config
     time, in both directions."""
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
-    from gp_dla_detection_tpu.parallel.sharded_multi import (
+    from gp_dla_detection.parallel.sharded_multi import (
         process_spectra_multi_sharded,
     )
 
@@ -223,7 +220,7 @@ def test_lean_blocks_matrix_consumers(problem, tmp_path):
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
     lean = _run(problem, store_sample_likelihoods=False)
 
-    from gp_dla_detection_tpu.multi_dla import process_spectra_multi
+    from gp_dla_detection.multi_dla import process_spectra_multi
 
     with pytest.raises(ValueError, match="lean"):
         process_spectra_multi(
@@ -231,7 +228,7 @@ def test_lean_blocks_matrix_consumers(problem, tmp_path):
             prior_f.astype(int), params=params, single=lean,
         )
 
-    from gp_dla_detection_tpu.io.matio import write_processed_mat
+    from gp_dla_detection.io.matio import write_processed_mat
 
     with pytest.raises(ValueError, match="lean"):
         write_processed_mat(
@@ -254,7 +251,7 @@ def test_lean_results_save_load_roundtrip(problem, tmp_path):
 
 
 def test_pipeline_config_rejects_lean_with_matrix_stages():
-    from gp_dla_detection_tpu.pipeline import PipelineConfig
+    from gp_dla_detection.pipeline import PipelineConfig
 
     with pytest.raises(ValueError, match="lean"):
         PipelineConfig(store_sample_likelihoods=False, export_matlab=True)

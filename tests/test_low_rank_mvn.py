@@ -3,7 +3,7 @@
 import numpy as np
 from scipy.stats import multivariate_normal
 
-from gp_dla_detection_tpu.ops.low_rank_mvn import (
+from gp_dla_detection.ops.low_rank_mvn import (
     batched_dla_log_likelihoods,
     log_mvnpdf_low_rank,
 )
@@ -116,3 +116,40 @@ def test_fuzz_masked_woodbury_vs_dense():
         assert abs(ours - exact) < 1e-8 * max(abs(exact), 1.0)
 
     run()
+
+
+import pytest  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_matmul_precision_per_dtype(dtype, monkeypatch):
+    """float32 matmuls run at low_rank_mvn.F32_PRECISION (one constant
+    for the whole path); float64 always at HIGHEST."""
+    import jax
+    import jax.numpy as jnp
+
+    from gp_dla_detection.ops import low_rank_mvn
+
+    rng = np.random.default_rng(0)
+    n, k, s = 40, 3, 5
+    args = (
+        jnp.asarray(rng.normal(size=n), dtype),
+        jnp.asarray(np.ones(n), dtype),
+        jnp.asarray(rng.normal(size=(n, k)) * 0.1, dtype),
+        jnp.asarray(np.full(n, 0.04), dtype),
+        jnp.asarray(np.full(n, 0.1), dtype),
+        jnp.asarray(np.ones(n, bool)),
+        jnp.asarray(rng.uniform(0.5, 1.0, (s, n)), dtype),
+    )
+    for prec in (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST):
+        monkeypatch.setattr(low_rank_mvn, "F32_PRECISION", prec)
+        # a fresh function per setting: jit caches traces per function
+        fn = low_rank_mvn.batched_dla_log_likelihoods.__wrapped__
+        hlo = jax.jit(lambda *a: fn(*a)).lower(*args).as_text()
+        want = prec if dtype == np.float32 else jax.lax.Precision.HIGHEST
+        dots = [ln for ln in hlo.splitlines() if "dot_general" in ln]
+        assert dots
+        if want == jax.lax.Precision.HIGHEST:
+            assert all("HIGHEST" in ln for ln in dots)
+        else:
+            assert not any("HIGHEST" in ln for ln in dots)

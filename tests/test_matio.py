@@ -5,7 +5,7 @@ files must import into our DLACatalogue."""
 import numpy as np
 import h5py
 
-from gp_dla_detection_tpu.io.matio import (
+from gp_dla_detection.io.matio import (
     load_catalogue_from_matlab,
     read_mat,
     write_dla_samples_mat,
@@ -132,7 +132,7 @@ def test_import_reference_style_files(tmp_path):
 
 
 def test_dla_samples_from_matlab(tmp_path):
-    from gp_dla_detection_tpu.samples import DLASamples
+    from gp_dla_detection.samples import DLASamples
 
     class S:
         offset_samples = np.linspace(0, 1, 30, endpoint=False)
@@ -165,7 +165,7 @@ def test_dla_samples_from_matlab(tmp_path):
     )
     minimal = DLASamples.from_matlab(tmp_path / "minimal.mat")
     np.testing.assert_allclose(minimal.nhi_samples, 10.0**S.log_nhi_samples)
-    from gp_dla_detection_tpu.params import DLASamplingParams
+    from gp_dla_detection.params import DLASamplingParams
 
     defaults = DLASamplingParams()
     assert minimal.config.alpha == defaults.alpha

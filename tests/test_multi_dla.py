@@ -5,15 +5,15 @@ path."""
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.inference import PaddedSpectra
-from gp_dla_detection_tpu.models.qso_model import GPModel
-from gp_dla_detection_tpu.multi_dla import (
+from gp_dla_detection.inference import PaddedSpectra
+from gp_dla_detection.models.qso_model import GPModel
+from gp_dla_detection.multi_dla import (
     make_base_sample_inds,
     multi_dla_rate_priors,
     process_spectra_multi,
 )
-from gp_dla_detection_tpu.ops.voigt import voigt_absorption
-from gp_dla_detection_tpu.params import NullModelParams, Parameters
+from gp_dla_detection.ops.voigt import voigt_absorption
+from gp_dla_detection.params import NullModelParams, Parameters
 
 
 def test_base_sample_inds_resample_posterior():
@@ -54,7 +54,7 @@ def test_base_sample_inds_nan_row_does_not_corrupt_neighbours():
 def test_prior_dla_multiplicity_none_marker():
     """None / empty absorber lists are the documented 'no redshifts'
     marker (same contract as correct_prior_dla_flags) and count as 1."""
-    from gp_dla_detection_tpu.multi_dla import prior_dla_multiplicity
+    from gp_dla_detection.multi_dla import prior_dla_multiplicity
 
     num = prior_dla_multiplicity(
         np.array([4.0, 4.0, 4.0, 4.0]),
@@ -163,7 +163,7 @@ def test_two_dla_classification(multi_problem):
     assert np.isfinite(lls2[2][~np.isnan(lls2[2])]).all()
 
     # the outputs feed the second-DLA analysis path
-    from gp_dla_detection_tpu.analysis import DLACatalogue
+    from gp_dla_detection.analysis import DLACatalogue
 
     cat = DLACatalogue(
         res.single.p_dlas,
@@ -182,15 +182,14 @@ def test_two_dla_classification(multi_problem):
     assert dndx.sum() > 0
 
 
-def test_two_dla_pallas_backend(multi_problem):
-    """The fused two-DLA Pallas kernel (interpret mode) must agree with
-    the XLA path: identical close-pair NaN masks, matching posteriors,
+def test_two_dla_float32(multi_problem):
+    """The float32 two-DLA path must agree with the float64 one:
+    identical close-pair NaN masks and base draws, matching posteriors,
     and per-pair log likelihoods within f32 end-to-end tolerance."""
     params, model, spectra, offsets, nhis, prior_z, prior_num, res = multi_problem
     rp = process_spectra_multi(
         model, offsets, nhis, spectra, prior_z, prior_num,
-        params=params, batch_size=3, sample_chunk=100,
-        dtype=np.float32, backend="pallas_interpret",
+        params=params, batch_size=3, sample_chunk=100, dtype=np.float32,
     )
     assert np.array_equal(
         np.isnan(rp.sample_log_likelihoods_dla2),
@@ -245,7 +244,7 @@ def test_multi_results_roundtrip(multi_problem, tmp_path):
 def test_multi_matlab_roundtrip(multi_problem, tmp_path):
     """Multi-DLA export must load back through the 3-D-format importer
     into a second-DLA-capable catalogue."""
-    from gp_dla_detection_tpu.io.matio import (
+    from gp_dla_detection.io.matio import (
         load_catalogue_from_matlab,
         write_dla_samples_mat,
         write_multi_processed_mat,
@@ -285,93 +284,51 @@ def test_multi_matlab_roundtrip(multi_problem, tmp_path):
     assert abs(zs[0] - 2.45) < 0.12 and abs(zs[1] - 2.85) < 0.12, zs
 
 
-def test_two_dla_pallas_full_lyman_series(multi_problem):
-    """Pair kernel at num_lines=31 (the reference kernel's default,
-    voigt.c:266), WINDOWED: the fresh axis's per-line fori_loop windows
-    must track all 31 line centers while the resampled axis accumulates
-    its full-grid optical depth, for BOTH absorbers of each pair.
-    Interpret mode (production gates 31-line runs to the faster
-    full-grid unroll, but the windowed loop kernel must stay correct);
-    XLA f64 is the oracle.
-
-    The offsets are drawn in a NARROW band so one 128-sample tile spans
-    a small pixel window: uniform [0,1] offsets at S <= tile make
-    compute_sample_window return None (window >= grid) and the test
-    would silently exercise the full-grid kernel instead."""
+def test_two_dla_full_lyman_series_float32(multi_problem):
+    """Pair evaluator at num_lines=31 (the reference kernel's default,
+    voigt.c:266): the optical depths of BOTH absorbers accumulate over
+    all 31 lines; float32 must track the float64 oracle."""
     import dataclasses
 
     import jax.numpy as jnp
 
-    from gp_dla_detection_tpu.inference import compute_sample_window
-    from gp_dla_detection_tpu.multi_dla import make_batch_dla2_fn
-    from gp_dla_detection_tpu.params import kms_to_z
+    from gp_dla_detection.multi_dla import make_batch_dla2_fn
+    from gp_dla_detection.params import kms_to_z
 
     params, model, spectra, offsets, nhis, prior_z, prior_num, res = multi_problem
     params31 = dataclasses.replace(params, num_lines=31)
     S = 96
-    order = np.argsort(offsets[:S])
-    off = 0.30 + 0.15 * offsets[:S][order]  # narrow z band (see docstring)
-    nh = nhis[:S][order]
+    off = 0.30 + 0.15 * offsets[:S]
+    nh = nhis[:S]
     rng = np.random.default_rng(7)
     base = rng.integers(0, S, size=(len(spectra), S))
     off_b = off[base]
     nh_b = nh[base]
-    min_sep = kms_to_z(3000.0)
+    fn = make_batch_dla2_fn(model, params31, S, 48, kms_to_z(3000.0))
 
-    model_args = lambda dt: (
-        jnp.asarray(model.rest_wavelengths, dt),
-        jnp.asarray(model.mu, dt),
-        jnp.asarray(model.M, dt),
-        jnp.asarray(model.log_omega, dt),
-    )
-    spec_args = lambda dt: (
-        jnp.asarray(spectra.wavelengths, dt),
-        jnp.asarray(spectra.flux, dt),
-        jnp.asarray(spectra.noise_variance, dt),
-        jnp.asarray(spectra.mask),
-        jnp.asarray(spectra.z_qso, dt),
-    )
+    def run(dt):
+        return np.asarray(
+            fn(
+                jnp.asarray(spectra.wavelengths, dt),
+                jnp.asarray(spectra.flux, dt),
+                jnp.asarray(spectra.noise_variance, dt),
+                jnp.asarray(spectra.mask),
+                jnp.asarray(spectra.z_qso, dt),
+                jnp.asarray(model.rest_wavelengths, dt),
+                jnp.asarray(model.mu, dt),
+                jnp.asarray(model.M, dt),
+                jnp.asarray(model.log_omega, dt),
+                jnp.asarray(off, dt), jnp.asarray(nh, dt),
+                jnp.asarray(off_b, dt), jnp.asarray(nh_b, dt),
+            ),
+            np.float64,
+        )
 
-    fn_xla = make_batch_dla2_fn(model, params31, S, 48, min_sep, "xla")
-    a = np.asarray(
-        fn_xla(
-            *spec_args(np.float64), *model_args(np.float64),
-            jnp.asarray(off), jnp.asarray(nh),
-            jnp.asarray(off_b), jnp.asarray(nh_b),
-        ),
-        np.float64,
-    )
-
-    # num_lines deliberately NOT passed: the production gate returns
-    # None above the unroll limit (a PERF choice — the windowed loop
-    # kernel is ~2x slower than the full-grid unroll); the window SIZE
-    # is line-independent (ops/voigt.py: every line's center spread is
-    # log10((1+z_hi)/(1+z_lo))/dex), so forcing a window here is the
-    # only way to pin the windowed 31-line pair numerics
-    window = compute_sample_window(
-        off, 128, spectra.wavelengths.shape[1] + 2 * params31.instrument.width,
-        pixel_spacing=params31.instrument.pixel_spacing,
-    )
-    assert window is not None, (
-        "test premise broken: the windowed kernel is not being exercised"
-    )
-    fn_pl = make_batch_dla2_fn(
-        model, params31, S, 48, min_sep, "pallas_interpret", window, tile=128
-    )
-    b = np.asarray(
-        fn_pl(
-            *spec_args(np.float32), *model_args(np.float32),
-            jnp.asarray(off, jnp.float32), jnp.asarray(nh, jnp.float32),
-            jnp.asarray(off_b, jnp.float32), jnp.asarray(nh_b, jnp.float32),
-        ),
-        np.float64,
-    )
-
+    a, b = run(np.float64), run(np.float32)
     assert np.array_equal(np.isnan(a), np.isnan(b))
     rel = np.abs(a - b) / np.maximum(np.abs(a), 1.0)
     # f32 roundoff accumulates over 31 lines x TWO absorbers' optical
-    # depths (measured worst ~1.8e-4; the single-absorber 31-line bound
-    # is 5e-5, the 3-line pair driver bound 1e-2)
+    # depths (the single-absorber 31-line bound is 5e-5)
     assert np.nanmax(rel) < 5e-4
 
 
@@ -379,7 +336,7 @@ def test_base_sample_inds_chunking_bit_identical():
     """Row-chunked resampling (the ~80 GB -> ~4 GB peak-memory fix at
     survey scale) must be bit-identical to the unchunked form: rows are
     independent and the shuffled grid depends only on (seed, S)."""
-    from gp_dla_detection_tpu.multi_dla import make_base_sample_inds
+    from gp_dla_detection.multi_dla import make_base_sample_inds
 
     rng = np.random.default_rng(3)
     sll = rng.normal(-500, 30, (257, 129)).astype(np.float32)

@@ -4,12 +4,12 @@ import numpy as np
 import pytest
 
 from conftest import write_spec_file
-from gp_dla_detection_tpu.io.native import (
+from gp_dla_detection.io.native import (
     load_library,
     native_available,
     read_spec_batch,
 )
-from gp_dla_detection_tpu.spectra import read_spec
+from gp_dla_detection.spectra import read_spec
 
 
 @pytest.fixture
@@ -77,7 +77,7 @@ def test_empty_bintable_matches_python(tmp_path):
 def test_bool_column_roundtrip(tmp_path):
     """bool columns must round-trip as bool (FITS logical 'L'), not
     uint8 0/1 — ~mask on a uint8 produces 254/255, not logical not."""
-    from gp_dla_detection_tpu.io import read_bintable, write_bintable
+    from gp_dla_detection.io import read_bintable, write_bintable
 
     path = tmp_path / "flags.fits"
     flags = np.array([True, False, True, True])
@@ -92,8 +92,8 @@ def test_quoted_header_values_and_overlong_cards(tmp_path):
     """FITS-escaped apostrophes in string cards survive a round trip;
     an overlong card raises instead of silently shifting the header
     grid."""
-    from gp_dla_detection_tpu.io import read_bintable, write_bintable
-    from gp_dla_detection_tpu.io.fits import _card
+    from gp_dla_detection.io import read_bintable, write_bintable
+    from gp_dla_detection.io.fits import _card
 
     path = tmp_path / "quote.fits"
     write_bintable(path, ["O'HARA"], [np.arange(3.0)])

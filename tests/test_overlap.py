@@ -13,7 +13,7 @@ import time
 import numpy as np
 import pytest
 
-from gp_dla_detection_tpu.parallel.overlap import (
+from gp_dla_detection.parallel.overlap import (
     BackgroundWriter,
     atomic_savez,
     atomic_write_json,

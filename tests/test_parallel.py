@@ -6,14 +6,14 @@ import numpy as np
 import jax
 import pytest
 
-from gp_dla_detection_tpu.inference import process_spectra
-from gp_dla_detection_tpu.models.training import learn_gp_model
-from gp_dla_detection_tpu.parallel import (
+from gp_dla_detection.inference import process_spectra
+from gp_dla_detection.models.training import learn_gp_model
+from gp_dla_detection.parallel import (
     ShardedRunConfig,
     make_mesh,
     process_spectra_sharded,
 )
-from gp_dla_detection_tpu.params import NullModelParams, OptimizationParams, Parameters
+from gp_dla_detection.params import NullModelParams, OptimizationParams, Parameters
 
 
 from synthetic_problem import make_problem
@@ -74,82 +74,32 @@ def test_sample_axis_sharding(problem):
     )
 
 
-def test_sharded_pallas_matches_single_device(problem):
-    """The Pallas backend on a multi-device mesh (per-shard program via
-    shard_map, interpret mode on CPU) must match the single-device
-    engine; same for the two-DLA driver."""
-    from gp_dla_detection_tpu.multi_dla import process_spectra_multi
-    from gp_dla_detection_tpu.parallel import process_spectra_multi_sharded
+@pytest.mark.parametrize("sample_parallelism", [1, 2], ids=["data", "data_x_sample"])
+def test_sharded_f32_matches_single_device(problem, sample_parallelism):
+    """The float32 path on a multi-device mesh — data-parallel, or with
+    the QMC sample axis split over a 'sample' mesh axis — must match the
+    single-device engine in the original sample order; same for the
+    two-DLA driver (fresh axis sharded, base columns riding along)."""
+    from gp_dla_detection.multi_dla import process_spectra_multi
+    from gp_dla_detection.parallel import process_spectra_multi_sharded
 
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
-    single = process_spectra(
-        model, offsets, nhis, spectra, prior_z, prior_f,
-        params=params, batch_size=4, sample_chunk=32, dtype=np.float32,
-        backend="pallas_interpret",
-    )
-    sharded = process_spectra_sharded(
-        model, offsets, nhis, spectra, prior_z, prior_f,
-        params=params, mesh=make_mesh(),
-        config=ShardedRunConfig(
-            per_device_batch=1, sample_chunk=32, dtype="float32",
-            backend="pallas_interpret", stream_dtype="float32",
-        ),
-    )
-    np.testing.assert_allclose(
-        sharded.sample_log_likelihoods_dla,
-        single.sample_log_likelihoods_dla,
-        rtol=2e-4,
-    )
-
-    prior_num = prior_f.astype(int)
-    m_single = process_spectra_multi(
-        model, offsets, nhis, spectra, prior_z, prior_num,
-        params=params, batch_size=4, sample_chunk=32, dtype=np.float32,
-        backend="pallas_interpret",
-    )
-    m_sharded = process_spectra_multi_sharded(
-        model, offsets, nhis, spectra, prior_z, prior_num,
-        params=params, mesh=make_mesh(),
-        config=ShardedRunConfig(
-            per_device_batch=1, sample_chunk=32, dtype="float32",
-            backend="pallas_interpret", stream_dtype="float32",
-        ),
-    )
-    assert np.array_equal(
-        np.isnan(m_sharded.sample_log_likelihoods_dla2),
-        np.isnan(m_single.sample_log_likelihoods_dla2),
-    )
-    rel = np.abs(
-        m_sharded.sample_log_likelihoods_dla2
-        - m_single.sample_log_likelihoods_dla2
-    ) / np.maximum(np.abs(m_single.sample_log_likelihoods_dla2), 1.0)
-    assert np.nanmax(rel) < 2e-4
-
-
-def test_sharded_pallas_sample_axis(problem):
-    """Fused-kernel SAMPLE-axis sharding: on a (data x sample) mesh the
-    driver pre-sorts the QMC samples by z, gives each shard a contiguous
-    sorted block (keeping the windowed kernel's contract), and restores
-    sample order after the gather — results must match the single-device
-    pallas engine in the ORIGINAL sample order."""
-    params, model, spectra, offsets, nhis, prior_z, prior_f = problem
-    mesh = make_mesh(sample_parallelism=2)
+    mesh = make_mesh(sample_parallelism=sample_parallelism)
     assert dict(zip(mesh.axis_names, mesh.devices.shape)) == {
-        "data": 4,
-        "sample": 2,
+        "data": 8 // sample_parallelism,
+        "sample": sample_parallelism,
     }
+    config = ShardedRunConfig(
+        per_device_batch=1, sample_chunk=32, dtype="float32",
+        stream_dtype="float32",
+    )
     single = process_spectra(
         model, offsets, nhis, spectra, prior_z, prior_f,
         params=params, batch_size=4, sample_chunk=32, dtype=np.float32,
-        backend="pallas_interpret",
     )
     sharded = process_spectra_sharded(
         model, offsets, nhis, spectra, prior_z, prior_f,
-        params=params, mesh=mesh,
-        config=ShardedRunConfig(
-            per_device_batch=1, sample_chunk=32, dtype="float32",
-            backend="pallas_interpret", stream_dtype="float32",
-        ),
+        params=params, mesh=mesh, config=config,
     )
     np.testing.assert_allclose(
         sharded.sample_log_likelihoods_dla,
@@ -161,24 +111,14 @@ def test_sharded_pallas_sample_axis(problem):
         rtol=2e-4,
     )
 
-    # two-DLA: fresh axis sharded in z-sorted blocks, base columns ride
-    # along; NaN pattern and values must match the single-device engine
-    from gp_dla_detection_tpu.multi_dla import process_spectra_multi
-    from gp_dla_detection_tpu.parallel import process_spectra_multi_sharded
-
     prior_num = prior_f.astype(int)
     m_single = process_spectra_multi(
         model, offsets, nhis, spectra, prior_z, prior_num,
         params=params, batch_size=4, sample_chunk=32, dtype=np.float32,
-        backend="pallas_interpret",
     )
     m_sharded = process_spectra_multi_sharded(
         model, offsets, nhis, spectra, prior_z, prior_num,
-        params=params, mesh=mesh,
-        config=ShardedRunConfig(
-            per_device_batch=1, sample_chunk=32, dtype="float32",
-            backend="pallas_interpret", stream_dtype="float32",
-        ),
+        params=params, mesh=mesh, config=config,
     )
     assert np.array_equal(
         np.isnan(m_sharded.sample_log_likelihoods_dla2),
@@ -220,8 +160,8 @@ def test_checkpoint_resume(problem, tmp_path):
 def test_sharded_multi_dla_matches_single_device(problem, tmp_path):
     """Sharded two-DLA model selection == single-device, with working
     pair-stage checkpoints."""
-    from gp_dla_detection_tpu.multi_dla import process_spectra_multi
-    from gp_dla_detection_tpu.parallel import process_spectra_multi_sharded
+    from gp_dla_detection.multi_dla import process_spectra_multi
+    from gp_dla_detection.parallel import process_spectra_multi_sharded
 
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
     rng = np.random.default_rng(11)
@@ -274,7 +214,7 @@ def test_data_parallel_training(problem):
         ),
         optimization=OptimizationParams(max_iterations=10, max_fun_evals=20),
     )
-    from gp_dla_detection_tpu.models.training import TrainingData
+    from gp_dla_detection.models.training import TrainingData
 
     mask = rng.uniform(size=(N, R)) > 0.2
     data = TrainingData(
@@ -295,7 +235,7 @@ def test_fetch_rows_wire_format():
     flushes only weightless residuals, f64 is never narrowed."""
     import jax.numpy as jnp
 
-    from gp_dla_detection_tpu.parallel.streaming import fetch_rows
+    from gp_dla_detection.parallel.streaming import fetch_rows
 
     sll = np.array(
         [
@@ -427,7 +367,7 @@ def test_two_process_distributed_lean_multi_matches_single(problem, tmp_path):
     full catalog, equal to the single-process fused run."""
     import json
 
-    from gp_dla_detection_tpu.parallel.sharded_multi import (
+    from gp_dla_detection.parallel.sharded_multi import (
         process_spectra_multi_sharded,
     )
 
@@ -519,8 +459,7 @@ def test_f16_streaming_preserves_posteriors(problem):
 
 
 def test_sharded_windowed_xla_matches_plain(problem):
-    """windowed_voigt=True on the XLA backend must actually window (it
-    was silently dropped before the ladder refactor) and agree with the
+    """windowed_voigt=True must actually window and agree with the
     plain path to windowed-approximation accuracy (the window covers
     every chunk's line cores; outside them only the negligible-core
     Gaussian term differs)."""
@@ -594,12 +533,12 @@ def test_bfloat16_checkpoint_roundtrip(problem, tmp_path):
 
 
 def test_data_only_mesh(problem, tmp_path):
-    """A mesh with ONLY a data axis (the layout the pallas-backend docs
-    recommend) must work in both drivers — sample arrays replicate."""
+    """A mesh with ONLY a data axis must work in both drivers — sample
+    arrays replicate."""
     from jax.sharding import Mesh
 
-    from gp_dla_detection_tpu.multi_dla import process_spectra_multi
-    from gp_dla_detection_tpu.parallel import process_spectra_multi_sharded
+    from gp_dla_detection.multi_dla import process_spectra_multi
+    from gp_dla_detection.parallel import process_spectra_multi_sharded
 
     params, model, spectra, offsets, nhis, prior_z, prior_f = problem
     mesh = Mesh(np.asarray(jax.devices()), ("data",))
@@ -713,3 +652,31 @@ def test_dispatch_thread_off_is_bit_identical(problem):
         a.log_likelihoods_no_dla, b.log_likelihoods_no_dla
     )
     np.testing.assert_array_equal(a.p_dlas, b.p_dlas)
+
+
+@pytest.mark.parametrize(
+    "dtype, digest, earlier",
+    [
+        # float64: the digest earlier versions wrote — their checkpoints
+        # resume
+        ("float64", "26ab7329a921a0b0eac3428b401d1048", True),
+        # float32: earlier versions' evidence implementation differs at
+        # the 1e-5 level — their checkpoints must not resume
+        ("float32", "fa8b948b35a4796429d705fed5027732", False),
+    ],
+)
+def test_checkpoint_fingerprint_across_versions(dtype, digest, earlier):
+    from gp_dla_detection.models.qso_model import GPModel
+    from gp_dla_detection.parallel.sharded_inference import run_fingerprint
+
+    grid = Parameters().null_model.rest_wavelengths()
+    model = GPModel(
+        rest_wavelengths=grid, mu=np.ones(grid.size),
+        M=np.full((grid.size, 2), 0.1), log_omega=np.zeros(grid.size),
+        log_c_0=-2.0, log_tau_0=-6.0, log_beta=1.3,
+    )
+    fp = run_fingerprint(
+        np.dtype(dtype), ShardedRunConfig(dtype=dtype), Parameters(), model,
+        np.linspace(0, 1, 5), np.full(5, 1e21), extra=(np.array([2.5, 3.0]),),
+    )
+    assert (fp == digest) is earlier

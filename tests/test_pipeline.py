@@ -8,22 +8,51 @@ import json
 import numpy as np
 
 
-def test_enable_compilation_cache(tmp_path):
-    """First caller wins; later calls are no-ops returning the dir in
-    effect (the cache is global jax state)."""
-    from gp_dla_detection_tpu.utils import enable_compilation_cache
+def test_enable_compilation_cache_checkout_dir(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache lives in the fixed
+    <checkout>/.jax_cache; repeat calls are idempotent."""
+    from pathlib import Path
 
-    d1 = enable_compilation_cache(tmp_path / "c1")
-    d2 = enable_compilation_cache(tmp_path / "c2")
-    assert d1 is not None
-    assert d2 == d1
+    import jax
 
-from gp_dla_detection_tpu.params import (
+    from gp_dla_detection.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        d1 = compile_cache.enable_compilation_cache()
+        d2 = compile_cache.enable_compilation_cache()
+        checkout = Path(__file__).resolve().parent.parent
+        assert d1 == d2 == str(checkout / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == d1
+        assert Path(d1).is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_enable_compilation_cache_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache
+    and nothing else is configured."""
+    import jax
+
+    from gp_dla_detection.utils import compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    before = jax.config.jax_compilation_cache_dir
+    updates = []
+    monkeypatch.setattr(
+        jax.config, "update", lambda *a: updates.append(a)
+    )
+    assert compile_cache.enable_compilation_cache() == str(tmp_path / "env")
+    assert updates == []
+    assert jax.config.jax_compilation_cache_dir == before
+
+from gp_dla_detection.params import (
     DLASamplingParams,
     NullModelParams,
     OptimizationParams,
 )
-from gp_dla_detection_tpu.pipeline import Pipeline, PipelineConfig
+from gp_dla_detection.pipeline import Pipeline, PipelineConfig
 
 
 def small_params(base):
@@ -62,7 +91,7 @@ def test_pipeline_run_all(synthetic_release, tmp_path):
     np.testing.assert_allclose(mp[ok].sum(axis=1), 1.0, rtol=1e-12)
 
     # the analysis layer loads the multi artifact directly
-    from gp_dla_detection_tpu.analysis import DLACatalogue
+    from gp_dla_detection.analysis import DLACatalogue
 
     cat = DLACatalogue.from_run(pipe.workdir, multi=True)
     assert cat.second_dla
@@ -222,10 +251,52 @@ def test_pipeline_matlab_export(synthetic_release, tmp_path):
         assert f["p_dlas"][0].shape == (8,)
         assert f["sample_log_likelihoods_dla"].shape == (100, 8)
     # and our own matlab importer round-trips into the analysis layer
-    from gp_dla_detection_tpu.io.matio import load_catalogue_from_matlab
+    from gp_dla_detection.io.matio import load_catalogue_from_matlab
 
     cat = load_catalogue_from_matlab(
         wd / "processed_qsos_dr12q.mat", wd / "dla_samples.mat",
         wd / "snrs.mat",
     )
     assert cat.p_dla.shape == (8,)
+
+
+def test_cli_has_no_backend_choice(capsys):
+    """The evidence path has one implementation per precision: the CLI
+    offers no backend switch (and so no interpret mode)."""
+    import sys
+
+    import pytest
+
+    from gp_dla_detection import pipeline
+
+    argv = sys.argv
+    sys.argv = ["pipeline", "--backend", "xla"]
+    try:
+        with pytest.raises(SystemExit) as exc:
+            pipeline.main()
+    finally:
+        sys.argv = argv
+    assert exc.value.code == 2
+    assert "--backend" in capsys.readouterr().err
+    assert not hasattr(PipelineConfig(), "backend")
+
+
+def test_pipeline_compilation_cache_opt_out(tmp_path, monkeypatch):
+    """compilation_cache=False leaves JAX's cache configuration alone."""
+    import jax
+
+    from gp_dla_detection.utils import compile_cache
+
+    calls = []
+    monkeypatch.setattr(
+        compile_cache, "enable_compilation_cache", lambda: calls.append(1)
+    )
+    import gp_dla_detection.utils as utils
+
+    monkeypatch.setattr(utils, "enable_compilation_cache",
+                        compile_cache.enable_compilation_cache)
+    Pipeline(config=PipelineConfig(workdir=str(tmp_path / "a"),
+                                   compilation_cache=False))
+    assert calls == []
+    Pipeline(config=PipelineConfig(workdir=str(tmp_path / "b")))
+    assert calls == [1]

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from gp_dla_detection_tpu.analysis.plots import (
+from gp_dla_detection.analysis.plots import (
     do_check_p_thresh,
     do_data_plots,
     do_qso_split,
     do_snr_check,
 )
-from gp_dla_detection_tpu.analysis.tables import (
+from gp_dla_detection.analysis.tables import (
     format_latex_num,
     format_latex_two_num,
     print_all_tables,
@@ -43,7 +43,7 @@ def test_do_data_plots_writes_tables(tmp_path, capsys):
 
 
 def test_robustness_sweeps_run(tmp_path):
-    from gp_dla_detection_tpu.analysis.plots import do_pixel_noise_check
+    from gp_dla_detection.analysis.plots import do_pixel_noise_check
 
     cat = make_synthetic_catalogue(n_certain=10, n_empty=60, n_weak=10)
     cat.snrs = np.full(cat.p_dla.size, 5.0)
@@ -79,7 +79,7 @@ def test_latex_formatting():
 
 def test_extended_plot_drivers(tmp_path):
     from test_analysis import make_two_dla_catalogue
-    from gp_dla_detection_tpu.analysis.plots import (
+    from gp_dla_detection.analysis.plots import (
         do_2dla_plots,
         do_compare_plots,
         do_sample_error_check,

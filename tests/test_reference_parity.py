@@ -40,7 +40,7 @@ def reference_calc_cddf():
 @pytest.fixture(scope="module")
 def shared_posterior(tmp_path_factory):
     """One synthetic posterior written as reference-layout .mat files."""
-    from gp_dla_detection_tpu.io.matio import (
+    from gp_dla_detection.io.matio import (
         write_dla_samples_mat,
         write_mat,
         write_snrs_mat,
@@ -122,7 +122,7 @@ def test_statistics_match_reference(reference_calc_cddf, shared_posterior):
         snrs_file=str(tmp / "snrs.mat"),
         snr=-2,
     )
-    from gp_dla_detection_tpu.io.matio import load_catalogue_from_matlab
+    from gp_dla_detection.io.matio import load_catalogue_from_matlab
 
     ours = load_catalogue_from_matlab(
         tmp / "processed.mat", tmp / "samples.mat", tmp / "snrs.mat"

@@ -3,8 +3,8 @@
 import numpy as np
 from scipy.integrate import quad
 
-from gp_dla_detection_tpu.params import Parameters
-from gp_dla_detection_tpu.samples import (
+from gp_dla_detection.params import Parameters
+from gp_dla_detection.samples import (
     DLASamples,
     generate_dla_samples,
     halton_rr2,

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import flatten_util
 
-from gp_dla_detection_tpu.models.training import (
+from gp_dla_detection.models.training import (
     BETA_MU,
     BETA_SIGMA,
     TAU_0_MU,
@@ -18,9 +18,9 @@ from gp_dla_detection_tpu.models.training import (
     objective,
     prepare_training_data,
 )
-from gp_dla_detection_tpu.ops.lbfgs import minimize_lbfgs
-from gp_dla_detection_tpu.ops.pca import pairwise_pca
-from gp_dla_detection_tpu.params import LYA_WAVELENGTH, NullModelParams, Parameters
+from gp_dla_detection.ops.lbfgs import minimize_lbfgs
+from gp_dla_detection.ops.pca import pairwise_pca
+from gp_dla_detection.params import LYA_WAVELENGTH, NullModelParams, Parameters
 
 
 def analytic_oracle(y, lya_1pz, noise, M, log_omega, log_c_0, log_tau_0, log_beta):
@@ -267,7 +267,7 @@ def test_end_to_end_fit_recovers_model():
 
 
 def dataclassesreplace_opt():
-    from gp_dla_detection_tpu.params import OptimizationParams
+    from gp_dla_detection.params import OptimizationParams
 
     return OptimizationParams(max_iterations=150, max_fun_evals=300)
 
@@ -396,7 +396,7 @@ def test_interp_stack_accepts_generators():
     first pass and silently returned []."""
     import jax.numpy as jnp
 
-    from gp_dla_detection_tpu.ops.interp import interp_stack_uniform
+    from gp_dla_detection.ops.interp import interp_stack_uniform
 
     xp = jnp.linspace(0.0, 1.0, 11)
     a = jnp.sin(xp)
@@ -413,7 +413,7 @@ def test_device_lbfgs_rosenbrock():
     import jax
     import jax.numpy as jnp
 
-    from gp_dla_detection_tpu.ops.lbfgs_device import minimize_lbfgs_device
+    from gp_dla_detection.ops.lbfgs_device import minimize_lbfgs_device
 
     vg = jax.value_and_grad(
         lambda x: (1.0 - x[0]) ** 2 + 100.0 * (x[1] - x[0] ** 2) ** 2
@@ -463,7 +463,7 @@ def test_device_lbfgs_matches_host_on_gp_training():
 def test_device_lbfgs_checkpoint_resume(tmp_path):
     """Interrupted device run + resume == uninterrupted run (the state
     file carries the full curvature history and counters)."""
-    from gp_dla_detection_tpu.ops.lbfgs_device import minimize_lbfgs_device
+    from gp_dla_detection.ops.lbfgs_device import minimize_lbfgs_device
     import jax
     import jax.numpy as jnp
 

@@ -8,9 +8,9 @@ the libcerf stand-in; our JAX op must agree to ~1e-8 relative.
 import numpy as np
 from scipy.special import wofz
 
-from gp_dla_detection_tpu.ops import lyman_series as lines
-from gp_dla_detection_tpu.ops.voigt import instrumental_broadening, voigt_absorption
-from gp_dla_detection_tpu.params import InstrumentParams
+from gp_dla_detection.ops import lyman_series as lines
+from gp_dla_detection.ops.voigt import instrumental_broadening, voigt_absorption
+from gp_dla_detection.params import InstrumentParams
 
 
 def oracle_voigt(wavelengths, z, nhi, num_lines=3, width=3):
@@ -117,7 +117,7 @@ def test_windowed_matches_full_at_31_lines():
     line-independent in log-wavelength), so the windowed fast path is
     exact for any num_lines.  Any pixel escaping its window would take
     the wing series inside the Doppler core and show up here."""
-    from gp_dla_detection_tpu.ops.voigt import (
+    from gp_dla_detection.ops.voigt import (
         WINDOW_MARGIN,
         voigt_absorption_windowed,
     )
@@ -166,7 +166,7 @@ def test_windowed_rejects_float64():
     numerics regression — it must refuse loudly."""
     import pytest
 
-    from gp_dla_detection_tpu.ops.voigt import voigt_absorption_windowed
+    from gp_dla_detection.ops.voigt import voigt_absorption_windowed
 
     lam = 10 ** (np.log10(3650.0) + 1e-4 * np.arange(200))
     with pytest.raises(ValueError, match="float32 fast path"):

@@ -6,20 +6,20 @@ this framework is: *the fast path changes no catalog decisions*.  This
 study quantifies it at survey-relevant scale: N spectra spanning the
 (z_DLA, log N_HI) prior are processed twice —
 
-  - production path: float32, fused Pallas kernel, f16 result streaming
-    (exactly what a survey run executes: process_spectra_sharded with
-    ShardedRunConfig defaults), and
-  - oracle path: float64, XLA backend, no stream narrowing (the mode
-    whose parity vs dense scipy is pinned at 1e-6 relative by
-    tests/test_inference.py + the golden fixture)
+  - production path: float32, f16 result streaming (exactly what a
+    survey run executes: process_spectra_sharded with ShardedRunConfig
+    defaults), and
+  - oracle path: float64, no stream narrowing (the mode whose parity vs
+    dense scipy is pinned at 1e-6 relative by tests/test_inference.py +
+    the golden fixture)
 
 and the |Δ log evidence|, |Δ p_DLA| distributions and classification
 flips at the p = 0.9 catalog threshold are reported.  The CI-sized
-version of this comparison (interpret-mode kernel) is pinned in
-tests/test_f32_decisions.py.
+version of this comparison is pinned in tests/test_f32_decisions.py.
 
 Run: python validation/f32_decision_study.py [--n-spectra 4096]
-Writes validation/RESULTS_F32.md (linked from docs/ACCURACY.md §2).
+Prints a markdown report; chip_smoke.py phase 3 is the same comparison
+on one batch of the card.
 """
 
 from __future__ import annotations
@@ -49,9 +49,9 @@ def build_problem(n_spectra: int, num_samples: int = 10000, seed: int = 77):
     injected DLA with log N_HI uniform in [20.0, 22.8] (the QMC prior's
     support), plus masked holes.  Construction shared with the scale
     rehearsal via validation/_universe.py."""
-    from gp_dla_detection_tpu import Parameters
-    from gp_dla_detection_tpu.inference import PaddedSpectra
-    from gp_dla_detection_tpu.params import DLASamplingParams, NullModelParams
+    from gp_dla_detection import Parameters
+    from gp_dla_detection.inference import PaddedSpectra
+    from gp_dla_detection.params import DLASamplingParams, NullModelParams
 
     rng = np.random.default_rng(seed)
     params = Parameters(
@@ -72,9 +72,8 @@ def build_problem(n_spectra: int, num_samples: int = 10000, seed: int = 77):
     inj: list[tuple[int, float, float]] = []
     for i in range(n_spectra):
         # row-wise so the rng draw order (continuum coefficients, noise,
-        # THEN this sightline's injection draws) matches the study's
-        # original interleaved construction — seed 77 reproduces the
-        # published RESULTS_F32.md universe exactly
+        # THEN this sightline's injection draws) keeps seed 77's
+        # universe identical across versions of this study
         flux[i] = synth_continua(
             lam[i : i + 1], z_qso[i : i + 1], model, noise_sd[i], rng
         )[0]
@@ -147,12 +146,12 @@ def compare(res32, res64, threshold: float = 0.9, margin: float = 0.01):
 
 
 def main(n_spectra: int = 4096, num_samples: int = 10000) -> None:
-    from gp_dla_detection_tpu.parallel import (
+    from gp_dla_detection.parallel import (
         ShardedRunConfig,
         make_mesh,
         process_spectra_sharded,
     )
-    from gp_dla_detection_tpu.utils import enable_compilation_cache
+    from gp_dla_detection.utils import enable_compilation_cache
 
     enable_compilation_cache()
     import jax
@@ -169,30 +168,23 @@ def main(n_spectra: int = 4096, num_samples: int = 10000) -> None:
         model, samples.offset_samples, samples.nhi_samples, spectra,
         prior_z, prior_f, params=params, mesh=mesh,
         config=ShardedRunConfig(
-            per_device_batch=min(1024, n_spectra), backend="pallas",
             dtype="float32", stream_dtype="float16",
         ),
     )
     t32 = time.time() - t0
-    print(f"f32 pallas+f16-stream pass: {t32:.1f} s", flush=True)
+    print(f"f32 + f16-stream pass: {t32:.1f} s", flush=True)
 
     t0 = time.time()
     res64 = process_spectra_sharded(
         model, samples.offset_samples, samples.nhi_samples, spectra,
         prior_z, prior_f, params=params, mesh=mesh,
         config=ShardedRunConfig(
-            # Small tiles: TPU f64 is emulated (float-float pairs), which
-            # both hoists a B x S_total x P x 8-byte absorption buffer out
-            # of the sample-chunk lax.map (26 GB at B=256) AND keeps ~55
-            # (B, S_chunk, P) f32 temps live in the emulated Faddeeva loop
-            # body (21.6 GB at B=32, S_chunk=2500, vs 15.75 GB v5e HBM).
-            # B=32, S_chunk=500 bounds both at ~8 GB.
-            per_device_batch=min(32, n_spectra), backend="xla",
-            dtype="float64", sample_chunk=500,
+            per_device_batch=min(32, n_spectra), dtype="float64",
+            sample_chunk=500,
         ),
     )
     t64 = time.time() - t0
-    print(f"f64 XLA oracle pass: {t64:.1f} s", flush=True)
+    print(f"f64 oracle pass: {t64:.1f} s", flush=True)
 
     stats = compare(res32, res64)
     detected64 = res64.p_dlas > 0.9
@@ -204,10 +196,10 @@ def main(n_spectra: int = 4096, num_samples: int = 10000) -> None:
         f"(z_QSO in [2.2, 4.2], {int(injected.sum())} injected DLAs with "
         "log N_HI in [20.0, 22.8]), "
         f"{num_samples} QMC samples",
-        "- production path: float32, fused Pallas kernel, f16 result "
-        f"streaming (sharded driver defaults) — {t32:.1f} s",
-        "- oracle path: float64, XLA backend (pinned vs dense scipy at "
-        f"1e-6 rel) — {t64:.1f} s",
+        "- production path: float32, f16 result streaming (sharded "
+        f"driver defaults) — {t32:.1f} s",
+        "- oracle path: float64 (pinned vs dense scipy at 1e-6 rel) — "
+        f"{t64:.1f} s",
         f"- DLA detections at p > 0.9 (oracle): {int(detected64.sum())}",
         "",
         "| quantity | median | p99 | max |",
@@ -244,7 +236,6 @@ def main(n_spectra: int = 4096, num_samples: int = 10000) -> None:
         "themselves within numerical noise of the threshold.",
     ]
     report = "\n".join(lines) + "\n"
-    (HERE / "RESULTS_F32.md").write_text(report)
     print(report)
     print(json.dumps(stats))
 
